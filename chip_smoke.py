@@ -6,15 +6,17 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``zkodst_tpu_torch/cuda/csrc``,
-runs the flagship slice — ``setup_blake2f(k=17, n_inst=37)`` (SRS made on
-the card), the EIP-152 witness for 37 instances, and the 14 advice
-commitments with blind seed 2 — and checks the SRS points, the digests and
-the 448 commitment bytes against ``tests/golden/flagship_proof_v1.json``.
-It then holds every kernel against its plain PyTorch version at each shape
-the main path gave it, times both, and prints one JSON line of kernel
-records and, last, ``{"ok": true, "device": {...}}``. Any failure exits
-non-zero before the last line. It imports nothing of JAX or zkodst_tpu and
-writes nothing outside the kernel build directory.
+runs the flagship slice — ``setup_blake2f(k=17, n_inst=37)`` (the SRS and
+the proving key made on the card), then ``prove`` on the EIP-152 witness
+for 37 instances with blind seed 2 through the grand-product commitments —
+and checks the SRS points, the verifying key's transcript digest, the 37
+digests and the 1088 proof bytes (14 advice, 8 A′/S′, 12 Z points) against
+``tests/golden/flagship_proof_v1.json``. It profiles the warm phases, then
+holds every kernel against its plain PyTorch version at each shape the
+main path gave it, times both, and prints one JSON line of kernel records
+and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+before the last line. It imports nothing of JAX or zkodst_tpu and writes
+nothing outside the kernel build directory.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "flagship_proof_v1.json")
 K, N_INST, SRS_SEED, BLIND_SEED = 17, 37, 0, 2
+PROOF_BYTES = 32 * (14 + 8 + 12)    # advice, A'/S', Z points
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory (data sheet)
 IMAD_PER_SM_CLOCK = 64              # 32-bit multiply results / SM / clock
 POINT_BYTES = 96                    # a projective point: 24 32-bit words
@@ -44,6 +47,11 @@ EC_ADD_OPS = 12 * MULMOD_OPS
 
 SOURCES = {
     "mulmod": "zkodst_tpu_torch/cuda/csrc/mulmod.cu",
+    "addmod": "zkodst_tpu_torch/cuda/csrc/mulmod.cu",
+    "chain_cumprod": "zkodst_tpu_torch/cuda/csrc/mulmod.cu",
+    "cumprod_tile": "zkodst_tpu_torch/cuda/csrc/mulmod.cu",
+    "ntt_tail": "zkodst_tpu_torch/cuda/csrc/ntt.cu",
+    "ntt_head": "zkodst_tpu_torch/cuda/csrc/ntt.cu",
     "ec_add": "zkodst_tpu_torch/cuda/csrc/ec.cu",
     "seg_step": "zkodst_tpu_torch/cuda/csrc/ec.cu",
     "seg_scan_tiles": "zkodst_tpu_torch/cuda/csrc/ec.cu",
@@ -52,6 +60,11 @@ SOURCES = {
 }
 REPLACES = {
     "mulmod": "zkodst_tpu/pallas/mulmod.py:111",
+    "addmod": "zkodst_tpu/pallas/mulmod.py:122",
+    "chain_cumprod": "zkodst_tpu/pallas/mulmod.py:142",
+    "cumprod_tile": "zkodst_tpu/pallas/mulmod.py:186",
+    "ntt_tail": "zkodst_tpu/pallas/ntt.py:65",
+    "ntt_head": "zkodst_tpu/pallas/ntt.py:105",
     "ec_add": "zkodst_tpu/pallas/ec.py:94",
     "seg_step": "zkodst_tpu/pallas/ec.py:100",
     "seg_scan_tiles": "zkodst_tpu/pallas/ec.py:137",
@@ -150,10 +163,24 @@ def work(name, args):
     seg_step once per element it does not keep)."""
     import torch
 
-    if name == "mulmod":
+    if name in ("mulmod", "addmod"):
         a, b = torch.broadcast_tensors(args[1], args[2])
         n = a.numel() // 8
-        return _held_bytes(a) + _held_bytes(b) + 32 * n, MULMOD_OPS * n
+        ops = MULMOD_OPS * n if name == "mulmod" else 0
+        return _held_bytes(a) + _held_bytes(b) + 32 * n, ops
+    if name == "chain_cumprod":
+        n, W = args[1].shape[0], args[2]
+        return 64 * n, MULMOD_OPS * (n - W)
+    if name == "cumprod_tile":
+        m = args[1].shape[0]
+        return 64 * m, MULMOD_OPS * (m - 1)
+    if name in ("ntt_tail", "ntt_head"):
+        B, n, _ = args[1].shape
+        if name == "ntt_tail":
+            stages, twiddles = args[3].bit_length() - 1, n // 2
+        else:
+            stages, twiddles = 1, args[3]
+        return 64 * B * n + 32 * twiddles, MULMOD_OPS * B * n // 2 * stages
     p = args[0]
     B, _, n = p.shape
     if name == "ec_add":
@@ -188,9 +215,12 @@ def main() -> int:
         from zkodst_tpu_torch.circuit import blake2f as bc
         from zkodst_tpu_torch.kernels import build, ec as kec
         from zkodst_tpu_torch.kernels import mulmod as kmul
+        from zkodst_tpu_torch.kernels import ntt as kntt
         from zkodst_tpu_torch.ops import blake2, curve, msm, pycurve, u64
+        from zkodst_tpu_torch.ops import ntt as ontt
         from zkodst_tpu_torch.ops.pyfield import FR
-        from zkodst_tpu_torch.proof import srs
+        from zkodst_tpu_torch.proof import keygen, prover, srs
+        from zkodst_tpu_torch.proof.transcript import Blake2bWrite
     except ImportError as ex:
         print(f"chip_smoke: run from the repository root ({ex})",
               file=sys.stderr)
@@ -232,8 +262,7 @@ def main() -> int:
     pr = api.setup_blake2f(k=K, n_inst=N_INST, srs_seed=SRS_SEED,
                            device="cuda")
     inputs = api.eip152_inputs(N_INST)
-    adv, inst = pr.witness(*inputs)
-    proof = pr.commit_advice(adv, seed=BLIND_SEED)
+    proof, inst = pr.prove(*inputs, seed=BLIND_SEED)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.counts()
@@ -241,8 +270,13 @@ def main() -> int:
         phases[ph.label] = ph.seconds
         log(f"phase {ph.label}: {ph.seconds:.3f} s")
     log(f"main path wall: {wall:.3f} s; launches: {launches}")
+    t1 = time.perf_counter()
+    pr.prove(*inputs, seed=BLIND_SEED)
+    torch.cuda.synchronize()
+    phases["prove (warm)"] = time.perf_counter() - t1
+    log(f"prove (warm, second call): {phases['prove (warm)']:.3f} s")
 
-    # -- checks ----------------------------------------------------------------
+    # -- checks ---------------------------------------------------------------
     failures = []
     p = FR.p
     n = 1 << K
@@ -258,13 +292,24 @@ def main() -> int:
                         "L0(tau)·G")
     else:
         log("SRS: g1[1] = tau·G and g1_lagrange[0] = L0(tau)·G")
-    want_bytes = bytes.fromhex(golden["proof_hex"])[:448]
-    if proof != want_bytes:
-        failures.append(f"advice commitments differ from the golden proof "
-                        f"({len(proof)} bytes)")
+    tw = Blake2bWrite()
+    pr.pk.vk.hash_into(tw)
+    digest = hex(tw.squeeze_challenge())
+    if digest != golden["vk_transcript_digest"]:
+        failures.append(f"vk transcript digest {digest} != "
+                        f"{golden['vk_transcript_digest']}")
     else:
-        log("advice commitments: 448 bytes equal flagship_proof_v1.json "
-            "proof_hex[:896]")
+        log(f"keygen: vk transcript digest = {digest} (the golden one)")
+    want_bytes = bytes.fromhex(golden["proof_hex"])[:PROOF_BYTES]
+    if proof != want_bytes:
+        same = next((i for i in range(min(len(proof), PROOF_BYTES))
+                     if proof[i] != want_bytes[i]), min(len(proof),
+                                                        PROOF_BYTES))
+        failures.append(f"proof bytes differ from the golden proof from "
+                        f"byte {same} ({len(proof)} bytes)")
+    else:
+        log(f"prove: {PROOF_BYTES} bytes (advice, A'/S', Z points) equal "
+            f"flagship_proof_v1.json proof_hex[:{2 * PROOF_BYTES}]")
     pub = inst["pub"].cpu().numpy()
     v = blake2.EIP152_VECTOR
     digests = set()
@@ -281,14 +326,20 @@ def main() -> int:
     if idle:
         failures.append(f"kernels not launched on the main path: {idle}")
 
-    # -- warm profile of the witness and commit phases ----------------------------
+    # -- warm profile of each phase -------------------------------------------
     profile = {}
     from torch.profiler import ProfilerActivity, profile as tprofile
 
+    adv, _ = pr.witness(*inputs)
+    staged = prover.Prover(pr.params, pr.pk, adv, inst, seed=BLIND_SEED)
+    staged.advice()
     for label, fn in (
             ("witness", lambda: pr.built.witness(*inputs)),
+            ("keygen", lambda: keygen.keygen(pr.params, pr.built.circ)),
             ("advice_commit",
-             lambda: pr.commit_advice(adv, seed=BLIND_SEED))):
+             lambda: pr.commit_advice(adv, seed=BLIND_SEED)),
+            ("lookup_permute", staged.lookups),
+            ("grand_products_commit", staged.grand_products)):
         fn()
         torch.cuda.synchronize()
         with tprofile(activities=[ProfilerActivity.CPU,
@@ -318,10 +369,16 @@ def main() -> int:
                 "time not measured (the profiler saw no device kernels)")
         for ms, cnt, key in rows[:8]:
             log(f"  {ms:10.3f} ms {cnt:8d}x  {key[:70]}")
+    del staged
 
-    # -- every kernel against its plain version, at the main path's shapes ------
+    # -- every kernel against its plain version, at the main path's shapes ----
     sites = {
         "mulmod": [(kmul, "mulmod")],
+        "addmod": [(kmul, "addmod")],
+        "chain_cumprod": [(kmul, "chain_cumprod")],
+        "cumprod_tile": [(kmul, "cumprod_tile")],
+        "ntt_tail": [(ontt, "ntt_tail")],
+        "ntt_head": [(ontt, "ntt_head")],
         "ec_add": [(kec, "ec_add")],
         "seg_step": [(msm, "seg_step")],
         "seg_scan_tiles": [(msm, "seg_scan_tiles")],
@@ -329,58 +386,69 @@ def main() -> int:
         "scale_reduce": [(msm, "scale_reduce")],
     }
     with Recorder(sites) as rec:
-        pr2 = api.Blake2fProver(built=pr.built, params=pr.params,
+        params = srs.setup(K, seed=SRS_SEED, device="cuda")
+        pk = keygen.keygen(params, pr.built.circ)
+        pr2 = api.Blake2fProver(built=pr.built, params=params, pk=pk,
                                 metrics=pr.metrics)
-        adv2, _ = pr2.witness(*inputs)
-        pr2.commit_advice(adv2, seed=BLIND_SEED)
-        srs.setup(K, seed=SRS_SEED, device="cuda")
+        pr2.prove(*inputs, seed=BLIND_SEED)
+        del params, pk, pr2
     wrappers = {name: fn for name, (fn, _) in kernels.WRAPPERS.items()}
-    plains = {"mulmod": kmul.mulmod_plain, "ec_add": kec.ec_add_plain,
+    plains = {"mulmod": kmul.mulmod_plain, "addmod": kmul.addmod_plain,
+              "chain_cumprod": kmul.chain_cumprod_plain,
+              "cumprod_tile": kmul.cumprod_tile_plain,
+              "ntt_tail": kntt.ntt_tail_plain,
+              "ntt_head": kntt.ntt_head_plain,
+              "ec_add": kec.ec_add_plain,
               "seg_step": kec.seg_step_plain,
               "seg_scan_tiles": kec.seg_scan_tiles_plain,
               "chain_scan_local": kec.chain_scan_local_plain,
               "scale_reduce": kec.scale_reduce_plain}
     records = {}
+    t_check = time.perf_counter()
     for (name, key), args in sorted(rec.calls.items(),
                                     key=lambda kv: str(kv[0])):
         fn, plain = wrappers[name], plains[name]
         out = fn(*args)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
         ref = plain(*args)
         torch.cuda.synchronize()
+        plain_once = (time.perf_counter() - t1) * 1e3
         err = int((out.to(torch.int64) - ref.to(torch.int64)).abs().max()) \
             if out.numel() else 0
         if out.shape != ref.shape or err != 0:
             failures.append(f"{name} {key}: kernel != plain (max abs limb "
                             f"difference {err})")
-        ms = time_ms(lambda: fn(*args), 7)
-        t1 = time.perf_counter()
-        plain(*args)
-        torch.cuda.synchronize()
-        first = (time.perf_counter() - t1) * 1e3
-        plain_ms = first if first > 2000 else time_ms(lambda: plain(*args), 3)
+        del out, ref
         nbytes, ops = work(name, args)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / imad_rate * 1e3
         shape = " ".join(getattr(k, "name", str(k)) for k in key)
-        entry = {"shape": shape, "max_abs_err": err, "ms": ms,
-                 "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        entry = {"shape": shape, "max_abs_err": err,
+                 "ms": time_ms(lambda: fn(*args), 7),
+                 "plain_ms": plain_once, "bound_ms": max(t_bytes, t_ops),
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         log(f"{name} {shape}: {'equal to' if err == 0 else 'DIFFERS from'} "
-            f"plain; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
-            f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
-        records.setdefault(name, []).append(entry)
-        del out, ref
+            f"plain; kernel {entry['ms']:.4f} ms, plain {plain_once:.1f} ms "
+            f"(one cold call), bound {entry['bound_ms']:.4f} ms "
+            f"({entry['bound_by']})")
+        records.setdefault(name, []).append((entry, args))
+    phases["kernel checks"] = time.perf_counter() - t_check
     line = []
     for name in wrappers:
-        shapes = sorted(records.get(name, []), key=lambda e: -e["bound_ms"])
+        shapes = sorted(records.get(name, []),
+                        key=lambda ea: -ea[0]["bound_ms"])
         if not shapes:
             failures.append(f"{name}: no call recorded on the main path")
             continue
-        top = shapes[0]
+        top, args = shapes[0]
+        if top["plain_ms"] < 2000:          # warm plain time where it is short
+            top["plain_ms"] = time_ms(lambda: plains[name](*args), 3)
         line.append({"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name],
                      "launches": launches[name], **top,
-                     "library_ms": None, "other_shapes": shapes[1:]})
+                     "library_ms": None,
+                     "other_shapes": [e for e, _ in shapes[1:]]})
     print(json.dumps({"card": card, "phases_s": phases,
                       "profile": profile}), flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -3,12 +3,16 @@
 
 import numpy as np
 import pytest
+import torch
 
 from zkodst_tpu.circuit import blake2f as jbc
 from zkodst_tpu.ops import u64 as ju64
 from zkodst_tpu_torch import api
 from zkodst_tpu_torch.circuit import blake2f as tbc
 from zkodst_tpu_torch.ops import blake2, u64
+
+# several test workers share the host's cores: one intra-op thread each
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

@@ -15,6 +15,9 @@ import torch
 from zkodst_tpu_torch.ops import curve, pycurve
 from zkodst_tpu_torch.ops.field import FQ, FR, ints_to_limbs
 
+# several test workers share the host's cores: one intra-op thread each
+torch.set_num_threads(1)
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "zkodst_tpu_torch", "cuda", "csrc")
 
@@ -52,6 +55,18 @@ void identity(uint32_t* o) {
   zk::set_identity(p);
   zk::store_pt(o, 1, 0, p);
 }
+// in place on (n, 8) words: (u, v) <- (u + w·v, u − w·v)
+void bfly(int field, uint32_t* u, uint32_t* v, const uint32_t* w,
+          long long n) {
+  for (long long i = 0; i < n; ++i) {
+    if (field == 0) zk::butterfly<zk::Fr>(u + 8 * i, v + 8 * i, w + 8 * i);
+    else zk::butterfly<zk::Fq>(u + 8 * i, v + 8 * i, w + 8 * i);
+  }
+}
+void one(int field, uint32_t* o) {
+  if (field == 0) zk::Fr::one(o);
+  else zk::Fq::one(o);
+}
 }
 """
 
@@ -72,6 +87,8 @@ def lib(tmp_path_factory):
                           ctypes.c_longlong]
     lib.pt_add.argtypes = [P, P, P, ctypes.c_longlong]
     lib.identity.argtypes = [P]
+    lib.bfly.argtypes = [ctypes.c_int, P, P, P, ctypes.c_longlong]
+    lib.one.argtypes = [ctypes.c_int, P]
     return lib
 
 
@@ -120,3 +137,20 @@ def test_ec_add_and_identity(lib):
     assert curve.to_affine_ints(torch.from_numpy(got.view(np.int32))) \
         == [G.add(x, y) for x, y in zip(a, b)]
     assert ints_to_limbs(FQ.r).tolist() == ident[1].tolist()
+
+
+@pytest.mark.parametrize("F", [FR, FQ], ids=["fr", "fq"])
+def test_butterfly_and_one(lib, F):
+    """The NTT kernels' butterfly and the kernels' Montgomery 1."""
+    vals = [[int.from_bytes(rng.bytes(40), "little") % F.p
+             for _ in range(64)] + [0, 1, F.p - 1] for _ in range(3)]
+    U, V, Wt = (F.from_ints(v) for v in vals)
+    u, v, w = (X.numpy().view(np.uint32).copy() for X in (U, V, Wt))
+    lib.bfly(F.kernel_id, u.ctypes.data, v.ctypes.data, w.ctypes.data,
+             u.shape[0])
+    t = F.mul(V, Wt)
+    np.testing.assert_array_equal(u, F.add(U, t).numpy().view(np.uint32))
+    np.testing.assert_array_equal(v, F.sub(U, t).numpy().view(np.uint32))
+    one = np.zeros(8, np.uint32)
+    lib.one(F.kernel_id, one.ctypes.data)
+    np.testing.assert_array_equal(one, F.ONE)

@@ -16,6 +16,9 @@ from zkodst_tpu_torch.kernels import ec
 from zkodst_tpu_torch.ops import curve, pycurve
 from zkodst_tpu_torch.ops.field import from_limbs16, to_limbs16
 
+# several test workers share the host's cores: one intra-op thread each
+torch.set_num_threads(1)
+
 G, GEN = pycurve.G1, pycurve.G1_GEN
 N = 512
 rng = np.random.default_rng(41)

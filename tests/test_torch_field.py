@@ -11,6 +11,9 @@ from zkodst_tpu.ops import field as jfield
 from zkodst_tpu_torch.circuit import ir as tir
 from zkodst_tpu_torch.ops import field as tfield
 
+# several test workers share the host's cores: one intra-op thread each
+torch.set_num_threads(1)
+
 rng = np.random.default_rng(31)
 PAIRS = [(jfield.FR, tfield.FR), (jfield.FQ, tfield.FQ)]
 

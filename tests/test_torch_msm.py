@@ -7,10 +7,14 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from zkodst_tpu_torch.ops import curve, msm, pycurve
 from zkodst_tpu_torch.ops.field import FR, ints_to_limbs
 from zkodst_tpu_torch.proof import srs
+
+# several test workers share the host's cores: one intra-op thread each
+torch.set_num_threads(1)
 
 G, GEN = pycurve.G1, pycurve.G1_GEN
 R = pycurve.R_ORDER

@@ -7,6 +7,7 @@ import os
 
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from zkodst_tpu.ops import curve as jcurve
 from zkodst_tpu.ops import msm as jmsm
@@ -14,6 +15,9 @@ from zkodst_tpu.proof import srs as jsrs
 from zkodst_tpu_torch.ops import curve, msm, pycurve
 from zkodst_tpu_torch.ops.field import FR, ints_to_limbs, to_limbs16
 from zkodst_tpu_torch.proof import srs
+
+# several test workers share the host's cores: one intra-op thread each
+torch.set_num_threads(1)
 
 G, GEN = pycurve.G1, pycurve.G1_GEN
 R = pycurve.R_ORDER

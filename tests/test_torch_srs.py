@@ -5,11 +5,15 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from zkodst_tpu.proof import srs as jsrs
 from zkodst_tpu_torch.ops import curve, pycurve
 from zkodst_tpu_torch.ops.field import from_limbs16
 from zkodst_tpu_torch.proof import srs
+
+# several test workers share the host's cores: one intra-op thread each
+torch.set_num_threads(1)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "golden", "dryrun_cache",
                        "srs_bn254_k6_s2.npz")

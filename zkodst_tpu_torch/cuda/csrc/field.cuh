@@ -35,6 +35,12 @@ struct Fr {
     p[3] = 0x2833E848u; p[4] = 0x8181585Du; p[5] = 0xB85045B6u;
     p[6] = 0xE131A029u; p[7] = 0x30644E72u;
   }
+  // 1 in Montgomery form (2^256 mod p)
+  ZK_HD static void one(uint32_t r[8]) {
+    r[0] = 0x4FFFFFFBu; r[1] = 0xAC96341Cu; r[2] = 0x9F60CD29u;
+    r[3] = 0x36FC7695u; r[4] = 0x7879462Eu; r[5] = 0x666EA36Fu;
+    r[6] = 0x9A07DF2Fu; r[7] = 0x0E0A77C1u;
+  }
 };
 
 // Fq: the base field (point coordinates).
@@ -44,6 +50,12 @@ struct Fq {
     p[0] = 0xD87CFD47u; p[1] = 0x3C208C16u; p[2] = 0x6871CA8Du;
     p[3] = 0x97816A91u; p[4] = 0x8181585Du; p[5] = 0xB85045B6u;
     p[6] = 0xE131A029u; p[7] = 0x30644E72u;
+  }
+  // 1 in Montgomery form (2^256 mod p)
+  ZK_HD static void one(uint32_t r[8]) {
+    r[0] = 0xC58F0D9Du; r[1] = 0xD35D438Du; r[2] = 0xF5C70B3Du;
+    r[3] = 0x0A78EB28u; r[4] = 0x7879462Cu; r[5] = 0x666EA36Fu;
+    r[6] = 0x9A07DF2Fu; r[7] = 0x0E0A77C1u;
   }
 };
 
@@ -137,19 +149,27 @@ ZK_HD void sub_mod(const uint32_t a[8], const uint32_t b[8], uint32_t r[8]) {
   }
 }
 
+// Radix-2 DIT butterfly in place: (u, v) <- (u + w·v, u − w·v).
+template <class M>
+ZK_HD void butterfly(uint32_t u[8], uint32_t v[8], const uint32_t w[8]) {
+  uint32_t t[8], s[8];
+  mont_mul<M>(v, w, t);
+  add_mod<M>(u, t, s);
+  sub_mod<M>(u, t, v);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) u[i] = s[i];
+}
+
 // A projective G1 point (X : Y : Z); the identity is (0 : 1 : 0).
 struct Pt {
   uint32_t x[8], y[8], z[8];
 };
 
 ZK_HD void set_identity(Pt& p) {
-  // Y = 1 in Montgomery form = 2^256 mod q
-  const uint32_t one[8] = {0xC58F0D9Du, 0xD35D438Du, 0xF5C70B3Du, 0x0A78EB28u,
-                           0x7879462Cu, 0x666EA36Fu, 0x9A07DF2Fu, 0x0E0A77C1u};
+  Fq::one(p.y);                     // Y = 1 in Montgomery form
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     p.x[i] = 0;
-    p.y[i] = one[i];
     p.z[i] = 0;
   }
 }

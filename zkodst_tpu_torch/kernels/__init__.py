@@ -10,11 +10,16 @@ accepted launch adds one to its entry point's count (``build.call``);
 
 from __future__ import annotations
 
-from . import build, ec, mulmod
+from . import build, ec, mulmod, ntt
 
 # wrapper -> (wrapper function, its C entry point)
 WRAPPERS = {
     "mulmod": (mulmod.mulmod, "zk_mulmod"),
+    "addmod": (mulmod.addmod, "zk_addmod"),
+    "chain_cumprod": (mulmod.chain_cumprod, "zk_chain_cumprod"),
+    "cumprod_tile": (mulmod.cumprod_tile, "zk_cumprod_tile"),
+    "ntt_tail": (ntt.ntt_tail, "zk_ntt_tail"),
+    "ntt_head": (ntt.ntt_head, "zk_ntt_head"),
     "ec_add": (ec.ec_add, "zk_ec_add"),
     "seg_step": (ec.seg_step, "zk_seg_step"),
     "seg_scan_tiles": (ec.seg_scan_tiles, "zk_seg_scan_tiles"),

@@ -21,7 +21,7 @@ from typing import Dict
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "cuda" / "csrc"
 BUILD_DIR = _PKG / "cuda" / "build"
-SOURCES = ("mulmod", "ec")
+SOURCES = ("mulmod", "ec", "ntt")
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
@@ -29,13 +29,22 @@ _LL = ctypes.c_longlong
 _I = ctypes.c_int
 # C entry points and their argument types (every one returns cudaError_t)
 SIGNATURES = {
-    "mulmod": {"zk_mulmod": [_P, _P, _P, _LL, _LL, _I, _P]},
+    "mulmod": {
+        "zk_mulmod": [_P, _P, _P, _LL, _LL, _I, _P],
+        "zk_addmod": [_P, _P, _P, _LL, _LL, _I, _P],
+        "zk_chain_cumprod": [_P, _P, _LL, _LL, _I, _P],
+        "zk_cumprod_tile": [_P, _P, _LL, _I, _P],
+    },
     "ec": {
         "zk_ec_add": [_P, _P, _P, _LL, _LL, _P],
         "zk_seg_step": [_P, _P, _P, _P, _LL, _LL, _P],
         "zk_chain_scan": [_P, _P, _P, _LL, _LL, _LL, _P],
         "zk_seg_scan_tiles": [_P, _P, _P, _LL, _LL, _I, _P],
         "zk_scale_reduce": [_P, _P, _LL, _LL, _I, _P],
+    },
+    "ntt": {
+        "zk_ntt_tail": [_P, _P, _P, _LL, _LL, _LL, _I, _P],
+        "zk_ntt_head": [_P, _P, _P, _LL, _LL, _LL, _I, _P],
     },
 }
 

@@ -70,24 +70,27 @@ def _mul9(a):
 
 def add_limbs(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Complete addition on int64 limb values, (..., 3, 8) each; the plain
-    twin of zk::ec_add in cuda/csrc/field.cuh."""
+    twin of zk::ec_add in cuda/csrc/field.cuh. The formula's independent
+    products, sums and differences run stacked, six products per call:
+    each value is the same as the kernel's, computed in fewer (larger)
+    tensor operations."""
     mul, add, sub = FQ.mont_mul64, FQ.add64, FQ.sub64
     x1, y1, z1 = p[..., 0, :], p[..., 1, :], p[..., 2, :]
     x2, y2, z2 = q[..., 0, :], q[..., 1, :], q[..., 2, :]
-    t0 = mul(x1, x2)
-    t1 = mul(y1, y2)
-    t2 = mul(z1, z2)
-    t3 = sub(mul(add(x1, y1), add(x2, y2)), add(t0, t1))
-    t4 = sub(mul(add(y1, z1), add(y2, z2)), add(t1, t2))
-    w3 = sub(mul(add(x1, z1), add(x2, z2)), add(t0, t2))
-    t0_3 = add(add(t0, t0), t0)
-    t2_9 = _mul9(t2)
-    z3p = add(t1, t2_9)
-    t1m = sub(t1, t2_9)
-    y3p = _mul9(w3)
-    x3 = sub(mul(t3, t1m), mul(t4, y3p))
-    y3 = add(mul(y3p, t0_3), mul(t1m, z3p))
-    z3 = add(mul(z3p, t4), mul(t0_3, t3))
+    s1 = add(torch.stack([x1, y1, x1]), torch.stack([y1, z1, z1]))
+    s2 = add(torch.stack([x2, y2, x2]), torch.stack([y2, z2, z2]))
+    t0, t1, t2, u1, u2, u3 = mul(torch.stack([x1, y1, z1, *s1]),
+                                 torch.stack([x2, y2, z2, *s2]))
+    # x1y2 + x2y1, y1z2 + y2z1, x1z2 + x2z1
+    t3, t4, w3 = sub(torch.stack([u1, u2, u3]),
+                     add(torch.stack([t0, t1, t0]), torch.stack([t1, t2, t2])))
+    t0_3 = add(add(t0, t0), t0)                     # 3·x1x2
+    t2_9, y3p = _mul9(torch.stack([t2, w3]))        # b3·z1z2, b3·w3
+    z3p, t1m = add(t1, t2_9), sub(t1, t2_9)
+    m = mul(torch.stack([t3, t4, y3p, t1m, z3p, t0_3]),
+            torch.stack([t1m, y3p, t0_3, z3p, t4, t3]))
+    x3 = sub(m[0], m[1])
+    y3, z3 = add(torch.stack([m[2], m[4]]), torch.stack([m[3], m[5]]))
     return torch.stack([x3, y3, z3], dim=-2)
 
 

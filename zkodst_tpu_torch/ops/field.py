@@ -10,9 +10,10 @@ reference's ``(..., 16)`` 16-bit limbs.
 The plain arithmetic (``*64`` methods) works on ``int64`` tensors holding
 32-bit limb values, because CPU ``torch.uint32`` has no add, ``>>`` or
 ``<``; the Montgomery product splits operands into 16-bit halves so every
-partial product and column sum stays exact in int64. :meth:`Field.mul`
-goes through the mulmod wrapper (kernels/mulmod.py), which launches the
-CUDA kernel for tensors on the card.
+partial product and column sum stays exact in int64. :meth:`Field.mul`,
+:meth:`Field.add` and :meth:`Field.cumprod_incl` go through the wrappers
+of kernels/mulmod.py, which launch the CUDA kernels for tensors on the
+card.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from . import pyfield
 L = 8                   # 32-bit limbs per element
 MASK32 = 0xFFFFFFFF
 MASK16 = 0xFFFF
+MUL_CHUNK = 1 << 18     # elements per plain Montgomery product pass
 
 
 def ints_to_limbs(xs) -> np.ndarray:
@@ -78,6 +80,39 @@ def to_limbs16(t: torch.Tensor) -> np.ndarray:
 
 def _split16(a: torch.Tensor) -> torch.Tensor:
     return torch.stack([a & MASK16, a >> 16], dim=-1).flatten(-2)
+
+
+def _carries(gen: torch.Tensor, prop: torch.Tensor) -> torch.Tensor:
+    """Carry out of each limb of a ripple chain in which limb i generates
+    (`gen`) or passes on (`prop`) a carry, never both, by a Kogge–Stone
+    prefix over the limbs. (..., L) bool -> (..., L) int64."""
+    g, p = gen, prop
+    d = 1
+    while d < g.shape[-1]:
+        pad = torch.zeros_like(g[..., :d])
+        g = g | (p & torch.cat([pad, g[..., :-d]], -1))
+        p = p & torch.cat([pad, p[..., :-d]], -1)
+        d *= 2
+    return g.to(torch.int64)
+
+
+def _into(c: torch.Tensor) -> torch.Tensor:
+    """Carries out of each limb -> carries into each limb."""
+    return torch.nn.functional.pad(c, (1, -1))
+
+
+def _add_limbs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a + b) mod 2^256 of 32-bit limb values."""
+    s = a + b
+    r = s & MASK32
+    return (r + _into(_carries(s > MASK32, r == MASK32))) & MASK32
+
+
+def _sub_limbs(a: torch.Tensor, b: torch.Tensor):
+    """(a − b) mod 2^256 of 32-bit limb values, and the borrow out (a < b)."""
+    d = a - b
+    c = _carries(d < 0, d == 0)
+    return (d - _into(c)) & MASK32, c[..., -1].bool()
 
 
 def _carry(t: torch.Tensor, bits: int) -> torch.Tensor:
@@ -139,48 +174,109 @@ class Field:
         return mulmod(self, a, b)
 
     def add(self, a, b):
-        return to_i32(self.add64(to_i64(a), to_i64(b)))
+        """(a + b) mod p (kernel 2 on the card)."""
+        from ..kernels.mulmod import addmod
+
+        return addmod(self, a, b)
 
     def sub(self, a, b):
+        """(a − b) mod p in plain PyTorch on any device: no ported phase
+        subtracts yet (the quotient's F.sub, TPU kernel 3, comes with it)."""
         return to_i32(self.sub64(to_i64(a), to_i64(b)))
+
+    def inv(self, a):
+        """Elementwise a^(p−2) (0 maps to 0), on the host: the tensor is
+        read back, inverted with Python ints and put back on its device.
+        The path inverts one element per `inv_batch`; 32 bytes each way
+        replace the ~380 one-element launches of a square-and-multiply on
+        the card."""
+        vals = self.to_ints(a)
+        inv = np.vectorize(lambda v: pow(int(v), self.p - 2, self.p),
+                           otypes=[object])(vals) if vals.size else vals
+        return self.from_ints(inv, a.device)
+
+    def inv_batch(self, a):
+        """Inverse of every element of an (n, 8) column (Montgomery's
+        trick): prefix and suffix products, one inverse of the total, then
+        inv_i = prefix_{<i} · suffix_{>i} · total⁻¹. Every element must be
+        nonzero."""
+        pre = self.cumprod_incl(a)
+        suf = self.cumprod_incl(a, reverse=True)
+        one = self.const(self.ONE, a.device)[None]
+        pre_exc = torch.cat([one, pre[:-1]])
+        suf_exc = torch.cat([suf[1:], one])
+        return self.mul(self.mul(pre_exc, suf_exc), self.inv(pre[-1]))
+
+    def cumprod_incl(self, a, reverse: bool = False, W: int = 2048):
+        """Inclusive cumulative product along axis 0 of an (n, 8) column
+        (suffix products with reverse=True).
+
+        Up to W elements: one tile scan (kernel 5). Longer: the column,
+        padded with ones to a multiple of W, is cut into W runs of S
+        contiguous elements; each run's local products (kernel 4), a tile
+        scan of the W run totals (kernel 5), and each run times the product
+        of the runs before it (kernel 1), as the reference's chained TPU
+        path (``zkodst_tpu/ops/field.py:342-357``)."""
+        from ..kernels.mulmod import chain_cumprod, cumprod_tile
+
+        n = a.shape[0]
+        x = a.flip(0) if reverse else a
+        if n <= W:
+            out = cumprod_tile(self, x)
+        else:
+            S = -(-n // W)
+            if S * W != n:
+                pad = self.const(self.ONE, a.device).expand(S * W - n, L)
+                x = torch.cat([x, pad])
+            local = chain_cumprod(self, x.contiguous(), W)
+            incl = cumprod_tile(self, local[S - 1::S].contiguous())
+            one = self.const(self.ONE, a.device)[None]
+            carry = torch.cat([one, incl[:-1]])
+            out = self.mul(local.view(W, S, L), carry[:, None, :])
+            out = out.reshape(S * W, L)[:n]
+        return out.flip(0) if reverse else out
 
     def neg(self, a):
         return self.sub(torch.zeros_like(a), a)
 
     # -- plain arithmetic on int64 limb values ---------------------------------
-    def _sub_borrow(self, a, b_limbs):
-        """(a - b) mod 2^256 limbwise and the final borrow (1 iff a < b)."""
-        out = torch.empty_like(a)
-        borrow = torch.zeros_like(a[..., 0])
-        for i in range(L):
-            v = a[..., i] - b_limbs[i] - borrow
-            borrow = (v < 0).to(torch.int64)
-            out[..., i] = v + (borrow << 32)
-        return out, borrow
+    def _p64(self, device) -> torch.Tensor:
+        return torch.tensor(self._p32, dtype=torch.int64, device=device)
 
     def reduce_once64(self, t):
         """t - p if t >= p else t, for t < 2p."""
-        d, borrow = self._sub_borrow(t, self._p32)
-        return torch.where(borrow.bool()[..., None], t, d)
+        d, borrow = _sub_limbs(t, self._p64(t.device))
+        return torch.where(borrow[..., None], t, d)
 
     def add64(self, a, b):
-        return self.reduce_once64(_carry(a + b, 32))
+        return self.reduce_once64(_add_limbs(a, b))
 
     def sub64(self, a, b):
-        d, borrow = self._sub_borrow(a, [b[..., i] for i in range(L)])
-        dp = _carry(d + torch.tensor(self._p32, dtype=torch.int64,
-                                     device=d.device), 32)
-        return torch.where(borrow.bool()[..., None], dp, d)
+        d, borrow = _sub_limbs(a, b)
+        return torch.where(borrow[..., None],
+                           _add_limbs(d, self._p64(d.device)), d)
 
     def mont_mul64(self, a, b):
         """Montgomery product of int64 limb values (CIOS on 16-bit digits:
-        partial products < 2^32, column sums < 2^38)."""
+        partial products < 2^32, column sums < 2^38). Long inputs run in
+        chunks of 2^18 elements: the partial-product grid takes 4 KB per
+        element."""
+        a, b = torch.broadcast_tensors(a, b)
+        if a.numel() > MUL_CHUNK * L:
+            fa, fb = a.reshape(-1, L), b.reshape(-1, L)
+            return torch.cat([self.mont_mul64(fa[i: i + MUL_CHUNK],
+                                              fb[i: i + MUL_CHUNK])
+                              for i in range(0, fa.shape[0], MUL_CHUNK)]
+                             ).reshape(a.shape)
         a16, b16 = _split16(a), _split16(b)
         n16 = 2 * L
-        t = torch.zeros(a16.shape[:-1] + (2 * n16 + 1,), dtype=torch.int64,
-                        device=a.device)
-        for i in range(n16):
-            t[..., i:i + n16] += a16[..., i:i + 1] * b16
+        # column sums of the 16×16 partial products: row i of the padded
+        # (16, 32) grid, read with a row length of 31, starts i columns on
+        pp = a16[..., :, None] * b16[..., None, :]
+        flat = torch.nn.functional.pad(pp, (0, n16)).flatten(-2)
+        t = flat[..., :n16 * (2 * n16 - 1)].reshape(
+            pp.shape[:-1] + (2 * n16 - 1,)).sum(-2)
+        t = torch.nn.functional.pad(t, (0, 2))
         p16 = torch.tensor(self._p16, dtype=torch.int64, device=a.device)
         for i in range(n16):
             m = ((t[..., i] & MASK16) * self.pinv16) & MASK16

@@ -14,8 +14,8 @@ Counterpart of the packed chained-scan path of ``zkodst_tpu/ops/msm.py``
 
 Sorting, gathers, ``searchsorted`` and ``cumsum`` are glue, as in the
 reference. Inputs of any N are padded with identity points and zero
-scalars to a multiple of 128 lanes (at least 256), which adds only
-zero-digit rows (bucket 0 has weight 0).
+scalars to a multiple of 128 lanes (below that, to a power of two of at
+least 16), which adds only zero-digit rows (bucket 0 has weight 0).
 """
 
 from __future__ import annotations
@@ -32,31 +32,26 @@ _MAX_TILE = 2048            # widest flat scan run by one seg_scan_tiles
 
 
 def _digits(scalars: torch.Tensor, c: int, nwin: int) -> torch.Tensor:
-    """(B, N, 8) normal-form limbs -> (B, nwin, N) int64 c-bit digits.
-
-    A window whose bits straddle two 32-bit limbs takes its high part from
-    the next limb."""
-    limbs = scalars.to(torch.int64) & MASK32
-    outs = []
-    for w in range(nwin):
-        bit = w * c
-        limb, off = bit // 32, bit % 32
-        if limb >= 8:
-            outs.append(torch.zeros_like(limbs[..., 0]))
-            continue
-        d = limbs[..., limb] >> off
-        if off + c > 32 and limb + 1 < 8:
-            d = d | (limbs[..., limb + 1] << (32 - off))
-        outs.append(d & ((1 << c) - 1))
-    return torch.stack(outs, dim=1)
+    """(B, N, 8) normal-form limbs -> (B, nwin, N) int64 c-bit digits, all
+    windows at once. A window whose bits straddle two 32-bit limbs takes
+    its high part from the next limb; windows past bit 255 are zero."""
+    limbs = torch.nn.functional.pad(scalars.to(torch.int64) & MASK32, (0, 2))
+    bit = torch.arange(nwin, device=scalars.device) * c
+    limb = torch.clamp(bit // 32, max=8)
+    off = bit % 32
+    d = (limbs[..., limb] >> off) | (limbs[..., limb + 1] << (32 - off))
+    return (d & ((1 << c) - 1)).transpose(1, 2)
 
 
 def _chain_w(n: int) -> int:
-    """Chain count W of the chained scan (2048 at n = 2^17)."""
-    for w in (2048, 1024, 512, 256, 128):
-        if n % w == 0 and n // w >= 2:
-            return w
-    raise ValueError(f"no chain width for n={n}")
+    """Chain count W of the chained scan: the widest power of two up to
+    2048 that leaves each chain at least two elements (2048 at n = 2^17)."""
+    w = 2048
+    while w > 1 and (n % w or n // w < 2):
+        w //= 2
+    if w == 1:
+        raise ValueError(f"no chain width for n={n}")
+    return w
 
 
 def _idp(batch: int, n: int, device) -> torch.Tensor:
@@ -177,10 +172,10 @@ def msm_many(points: torch.Tensor, scalars: torch.Tensor, c: int = 8,
     N = points.shape[0]
     B = scalars.shape[0]
     dev = points.device
-    # wide windows pay only when 2^c is small next to N (floor 8)
-    c = min(c, max(8, N.bit_length() - 1))
+    # wide windows pay only when 2^c is small next to N (floor 4)
+    c = min(c, max(4, N.bit_length() - 1))
     nwin = (scalar_bits + c - 1) // c
-    n = max(256, -(-N // 128) * 128)
+    n = -(-N // 128) * 128 if N > 128 else max(16, 1 << (N - 1).bit_length())
     if n != N:
         points = torch.cat([points, curve.identity((n - N,), dev)])
         scalars = torch.cat([scalars, torch.zeros(

@@ -14,6 +14,7 @@ from typing import List
 import torch
 
 SETUP = "setup"
+PROVE = "prove"
 
 
 @dataclass
