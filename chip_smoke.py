@@ -6,21 +6,26 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``zkodst_tpu_torch/cuda/csrc``,
-runs the flagship slice — ``setup_blake2f(k=17, n_inst=37)`` (the SRS and
-the proving key made on the card), then ``prove`` on the EIP-152 witness
-for 37 instances with blind seed 2 through the grand-product commitments —
-and checks the SRS points, the verifying key's transcript digest, the 37
-digests and the 1088 proof bytes (14 advice, 8 A′/S′, 12 Z points) against
-``tests/golden/flagship_proof_v1.json``. It profiles the warm phases, then
-holds every kernel against its plain PyTorch version at each shape the
-main path gave it, times both, and prints one JSON line of kernel records
-and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
-before the last line. It imports nothing of JAX or zkodst_tpu and writes
-nothing outside the kernel build directory.
+runs the flagship main path — ``setup_blake2f(k=17, n_inst=37)`` (the SRS
+and the proving key made on the card), ``prove`` on the EIP-152 witness
+for 37 instances with blind seed 2, and ``verify`` — and checks the SRS
+points, the verifying key's transcript digest, the 37 digests and all
+4480 proof bytes and their sha256 against
+``tests/golden/flagship_proof_v1.json``; the port's verifier must accept
+the card's proof and reject it with one byte flipped in a point and in a
+scalar. It profiles the warm phases, runs setup and prove once more
+under the profiler to read each kernel's device time on the path from the
+trace, then holds every kernel against its plain PyTorch version at each
+shape that run gave it, times both, and prints one JSON line of kernel
+records and, last,
+``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
+last line. It imports nothing of JAX or zkodst_tpu and writes nothing
+outside the kernel build directory.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -34,7 +39,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "flagship_proof_v1.json")
 K, N_INST, SRS_SEED, BLIND_SEED = 17, 37, 0, 2
-PROOF_BYTES = 32 * (14 + 8 + 12)    # advice, A'/S', Z points
+PROOF_BYTES = 4480     # 14 advice, 8 A'/S', 12 Z, 4 h points, 100
+                       # evaluations, W and W'
+SCALAR_AT = 32 * (14 + 8 + 12 + 4)  # the first evaluation
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory (data sheet)
 IMAD_PER_SM_CLOCK = 64              # 32-bit multiply results / SM / clock
 POINT_BYTES = 96                    # a projective point: 24 32-bit words
@@ -48,6 +55,7 @@ EC_ADD_OPS = 12 * MULMOD_OPS
 SOURCES = {
     "mulmod": "zkodst_tpu_torch/cuda/csrc/mulmod.cu",
     "addmod": "zkodst_tpu_torch/cuda/csrc/mulmod.cu",
+    "submod": "zkodst_tpu_torch/cuda/csrc/mulmod.cu",
     "chain_cumprod": "zkodst_tpu_torch/cuda/csrc/mulmod.cu",
     "cumprod_tile": "zkodst_tpu_torch/cuda/csrc/mulmod.cu",
     "ntt_tail": "zkodst_tpu_torch/cuda/csrc/ntt.cu",
@@ -61,6 +69,7 @@ SOURCES = {
 REPLACES = {
     "mulmod": "zkodst_tpu/pallas/mulmod.py:111",
     "addmod": "zkodst_tpu/pallas/mulmod.py:122",
+    "submod": "zkodst_tpu/pallas/mulmod.py:132",
     "chain_cumprod": "zkodst_tpu/pallas/mulmod.py:142",
     "cumprod_tile": "zkodst_tpu/pallas/mulmod.py:186",
     "ntt_tail": "zkodst_tpu/pallas/ntt.py:65",
@@ -85,12 +94,16 @@ def card_line() -> str:
 
 
 class Recorder:
-    """Wraps each kernel wrapper where the main path looks it up and keeps
-    a copy of the inputs of the first call per distinct shape."""
+    """Wraps each kernel wrapper where the main path looks it up, keeps a
+    copy of the inputs of the first call per distinct shape, counts the
+    calls per shape and keeps the work (bytes, operations) of every call
+    on its own inputs."""
 
     def __init__(self, sites):
         self.sites = sites              # name -> [(module, attr)]
-        self.calls = {}                 # (name, key) -> (args, kwargs)
+        self.calls = {}                 # (name, key) -> args
+        self.n = {}                     # (name, key) -> calls
+        self.work = {}                  # name -> [(bytes, operations)]
         self.saved = []
 
     def __enter__(self):
@@ -115,8 +128,32 @@ class Recorder:
                 self.calls[(name, key)] = tuple(
                     _copy(a) if isinstance(a, torch.Tensor) else a
                     for a in args)
+            self.n[(name, key)] = self.n.get((name, key), 0) + 1
+            self.work.setdefault(name, []).append(work(name, args))
             return fn(*args)
         return rec
+
+
+# a device kernel's name in a profiler trace -> its wrapper; the binop
+# kernel's template argument Op (0 mul, 1 add, 2 sub) picks among three
+TRACE_NAMES = {"chain_cumprod_kernel": "chain_cumprod",
+               "cumprod_tile_kernel": "cumprod_tile",
+               "ntt_tail_kernel": "ntt_tail", "ntt_head_kernel": "ntt_head",
+               "ec_add_kernel": "ec_add", "seg_step_kernel": "seg_step",
+               "seg_scan_tiles_kernel": "seg_scan_tiles",
+               "chain_scan_kernel": "chain_scan_local",
+               "scale_reduce_kernel": "scale_reduce"}
+BINOPS = {"0": "mulmod", "1": "addmod", "2": "submod", "kMul": "mulmod",
+          "kAdd": "addmod", "kSub": "submod"}
+
+
+def traced_kernel(key: str):
+    """The wrapper whose kernel a trace row `key` names, or None for a
+    kernel that is not one of the port's."""
+    if "binop_kernel" in key:           # demangled "Op)2" or mangled "OpE2"
+        op = re.search(r"Op\)(\d)|OpE(\d)|\b(kMul|kAdd|kSub)\b", key)
+        return BINOPS[next(g for g in op.groups() if g)] if op else None
+    return next((w for k, w in TRACE_NAMES.items() if k in key), None)
 
 
 def _copy(t):
@@ -163,7 +200,7 @@ def work(name, args):
     seg_step once per element it does not keep)."""
     import torch
 
-    if name in ("mulmod", "addmod"):
+    if name in ("mulmod", "addmod", "submod"):
         a, b = torch.broadcast_tensors(args[1], args[2])
         n = a.numel() // 8
         ops = MULMOD_OPS * n if name == "mulmod" else 0
@@ -219,7 +256,7 @@ def main() -> int:
         from zkodst_tpu_torch.ops import blake2, curve, msm, pycurve, u64
         from zkodst_tpu_torch.ops import ntt as ontt
         from zkodst_tpu_torch.ops.pyfield import FR
-        from zkodst_tpu_torch.proof import keygen, prover, srs
+        from zkodst_tpu_torch.proof import keygen, prover, srs, verifier
         from zkodst_tpu_torch.proof.transcript import Blake2bWrite
     except ImportError as ex:
         print(f"chip_smoke: run from the repository root ({ex})",
@@ -263,6 +300,7 @@ def main() -> int:
                            device="cuda")
     inputs = api.eip152_inputs(N_INST)
     proof, inst = pr.prove(*inputs, seed=BLIND_SEED)
+    accepted = pr.verify(inst, proof)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.counts()
@@ -300,16 +338,32 @@ def main() -> int:
                         f"{golden['vk_transcript_digest']}")
     else:
         log(f"keygen: vk transcript digest = {digest} (the golden one)")
-    want_bytes = bytes.fromhex(golden["proof_hex"])[:PROOF_BYTES]
-    if proof != want_bytes:
-        same = next((i for i in range(min(len(proof), PROOF_BYTES))
-                     if proof[i] != want_bytes[i]), min(len(proof),
-                                                        PROOF_BYTES))
+    want_bytes = bytes.fromhex(golden["proof_hex"])
+    sha = hashlib.sha256(proof).hexdigest()
+    if proof != want_bytes or len(proof) != PROOF_BYTES \
+            or sha != golden["proof_sha256"]:
+        same = next((i for i in range(min(len(proof), len(want_bytes)))
+                     if proof[i] != want_bytes[i]),
+                    min(len(proof), len(want_bytes)))
         failures.append(f"proof bytes differ from the golden proof from "
-                        f"byte {same} ({len(proof)} bytes)")
+                        f"byte {same} ({len(proof)} bytes, sha256 {sha})")
     else:
-        log(f"prove: {PROOF_BYTES} bytes (advice, A'/S', Z points) equal "
-            f"flagship_proof_v1.json proof_hex[:{2 * PROOF_BYTES}]")
+        log(f"prove: {len(proof)} bytes, sha256 {sha}, equal "
+            "flagship_proof_v1.json")
+    if not accepted:
+        failures.append("verify: the port's verifier rejects the card's proof")
+    else:
+        log("verify: the port's verifier accepts the card's proof")
+    for what, at in (("a point (the first advice commitment)", 0),
+                     ("a scalar (the first evaluation)", SCALAR_AT)):
+        bad = bytearray(proof)
+        bad[at] ^= 1
+        if verifier.verify_proof(pr.params, pr.pk.vk, inst, bytes(bad)):
+            failures.append(f"verify: accepts the proof with a byte of "
+                            f"{what} flipped")
+        else:
+            log(f"verify: rejects the proof with byte {at} flipped, in "
+                f"{what}")
     pub = inst["pub"].cpu().numpy()
     v = blake2.EIP152_VECTOR
     digests = set()
@@ -339,7 +393,11 @@ def main() -> int:
             ("advice_commit",
              lambda: pr.commit_advice(adv, seed=BLIND_SEED)),
             ("lookup_permute", staged.lookups),
-            ("grand_products_commit", staged.grand_products)):
+            ("grand_products_commit", staged.grand_products),
+            ("quotient", staged.quotient),
+            ("evaluations", staged.evaluations),
+            ("multiopen", staged.multiopen),
+            ("verify", lambda: pr.verify(inst, proof))):
         fn()
         torch.cuda.synchronize()
         with tprofile(activities=[ProfilerActivity.CPU,
@@ -375,6 +433,7 @@ def main() -> int:
     sites = {
         "mulmod": [(kmul, "mulmod")],
         "addmod": [(kmul, "addmod")],
+        "submod": [(kmul, "submod")],
         "chain_cumprod": [(kmul, "chain_cumprod")],
         "cumprod_tile": [(kmul, "cumprod_tile")],
         "ntt_tail": [(ontt, "ntt_tail")],
@@ -385,15 +444,37 @@ def main() -> int:
         "chain_scan_local": [(msm, "chain_scan_local")],
         "scale_reduce": [(msm, "scale_reduce")],
     }
-    with Recorder(sites) as rec:
+    # the recorded run, traced: SRS, keygen and prove once more, so that
+    # each kernel's device time on the path is read from the trace
+    with Recorder(sites) as rec, tprofile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         params = srs.setup(K, seed=SRS_SEED, device="cuda")
         pk = keygen.keygen(params, pr.built.circ)
         pr2 = api.Blake2fProver(built=pr.built, params=params, pk=pk,
                                 metrics=pr.metrics)
         pr2.prove(*inputs, seed=BLIND_SEED)
+        torch.cuda.synchronize()
         del params, pk, pr2
+    traced = {}                         # wrapper -> [device ms, launches]
+    unnamed = set()
+    for ev in prof.key_averages():
+        dt = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if ev.device_type != torch.autograd.DeviceType.CUDA or dt <= 0:
+            continue
+        name = traced_kernel(ev.key)
+        if name is None:
+            if "binop_kernel" in ev.key:
+                unnamed.add(ev.key[:120])
+            continue
+        t = traced.setdefault(name, [0.0, 0])
+        t[0] += dt / 1e3
+        t[1] += ev.count
+    if unnamed:
+        failures.append(f"trace rows naming no kernel: {sorted(unnamed)}")
     wrappers = {name: fn for name, (fn, _) in kernels.WRAPPERS.items()}
     plains = {"mulmod": kmul.mulmod_plain, "addmod": kmul.addmod_plain,
+              "submod": kmul.submod_plain,
               "chain_cumprod": kmul.chain_cumprod_plain,
               "cumprod_tile": kmul.cumprod_tile_plain,
               "ntt_tail": kntt.ntt_tail_plain,
@@ -424,8 +505,8 @@ def main() -> int:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / imad_rate * 1e3
         shape = " ".join(getattr(k, "name", str(k)) for k in key)
-        entry = {"shape": shape, "max_abs_err": err,
-                 "ms": time_ms(lambda: fn(*args), 7),
+        entry = {"shape": shape, "calls": rec.n[(name, key)],
+                 "max_abs_err": err, "ms": time_ms(lambda: fn(*args), 7),
                  "plain_ms": plain_once, "bound_ms": max(t_bytes, t_ops),
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         log(f"{name} {shape}: {'equal to' if err == 0 else 'DIFFERS from'} "
@@ -444,10 +525,23 @@ def main() -> int:
         top, args = shapes[0]
         if top["plain_ms"] < 2000:          # warm plain time where it is short
             top["plain_ms"] = time_ms(lambda: plains[name](*args), 3)
+        # the recorded run's device time of this kernel, from its trace,
+        # against every call's bound on that call's own inputs
+        calls = sum(e["calls"] for e, _ in shapes)
+        ms, seen = traced.get(name, (0.0, 0))
+        if seen != calls:
+            failures.append(f"{name}: the trace holds {seen} launches, the "
+                            f"wrapper was called {calls} times")
+        path = {"path_calls": calls, "path_ms": ms,
+                "path_bound_ms": sum(max(b / HBM_BYTES_PER_S, o / imad_rate)
+                                     for b, o in rec.work[name]) * 1e3}
+        log(f"{name}: {calls} calls in the recorded run ({launches[name]} "
+            f"launches on the main path), {ms:.3f} ms of device time in "
+            f"its trace against {path['path_bound_ms']:.3f} ms at the bound")
         line.append({"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name],
                      "launches": launches[name], **top,
-                     "library_ms": None,
+                     "library_ms": None, **path,
                      "other_shapes": [e for e, _ in shapes[1:]]})
     print(json.dumps({"card": card, "phases_s": phases,
                       "profile": profile}), flush=True)

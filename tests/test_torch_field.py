@@ -53,17 +53,22 @@ def test_from_ints_and_limb_converters(pair):
     assert list(TF.to_ints(TF.neg(t))) == [(-x) % TF.p for x in a]
 
 
-@pytest.mark.parametrize("shape,const", [
-    ((8,), True), ((3, 5, 8), False), ((1, 8), True), ((1, 5, 8), False)])
-def test_mulmod_sees_a_broadcast_constant(shape, const):
+@pytest.mark.parametrize("shape,const,period", [
+    ((8,), True, 1), ((3, 5, 8), False, 15), ((1, 8), True, 1),
+    ((1, 5, 8), False, 5)])
+def test_mulmod_sees_a_broadcast_constant(shape, const, period):
     """The mulmod wrapper hands the kernel one element, not a copy, when
-    the second operand is one value broadcast over the first."""
-    from zkodst_tpu_torch.kernels.mulmod import _is_const
+    an operand is one value broadcast over the other, and one column when
+    it is a column broadcast over leading dimensions (its period)."""
+    from zkodst_tpu_torch.kernels.mulmod import _operand
 
     b = torch.arange(8, dtype=torch.int32).expand(shape) if const else \
         torch.zeros(shape, dtype=torch.int32)
     a = torch.zeros((3, 5, 8), dtype=torch.int32)
-    assert _is_const(torch.broadcast_tensors(a, b)[1]) is const
+    for x in torch.broadcast_tensors(b, a)[0], torch.broadcast_tensors(a, b)[1]:
+        held, m = _operand(x)
+        assert (m == 1) is const
+        assert m == period and held.numel() == 8 * period
 
 
 def test_u64_cols_to_field_matches_jax():

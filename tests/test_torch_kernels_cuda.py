@@ -73,6 +73,34 @@ def test_addmod(dev, F):
     _same(mulmod.addmod(F, a.to(dev), c.to(dev)), mulmod.addmod_plain(F, a, c))
 
 
+@pytest.mark.parametrize("F", [FR, FQ], ids=["fr", "fq"])
+def test_submod(dev, F):
+    a, b = _elements(F, 4099, 78), _elements(F, 4099, 79)
+    _same(mulmod.submod(F, a.to(dev), b.to(dev)), mulmod.submod_plain(F, a, b))
+    c = b[5]                                    # a broadcast constant b
+    _same(mulmod.submod(F, a.to(dev), c.to(dev)), mulmod.submod_plain(F, a, c))
+    one = F.const(F.ONE)                        # a broadcast constant a
+    _same(mulmod.submod(F, one.to(dev), a.to(dev)),
+          mulmod.submod_plain(F, one, a))
+    _same(F.neg(a.to(dev)), F.neg(a))
+
+
+@pytest.mark.parametrize("op", ["mulmod", "addmod", "submod"])
+@pytest.mark.parametrize("layout", ["column", "per_row", "both_const"])
+def test_binop_broadcast_layouts(dev, op, layout):
+    """A column broadcast over a leading dimension is read with its period;
+    a value per row of the leading dimension is copied whole; two
+    constants give one element."""
+    x = _elements(FR, 3 * 257, 80).reshape(3, 257, 8)
+    col = x[0]
+    a, b = {"column": (x, col[None]),
+            "per_row": (col[None], x[:, :1]),
+            "both_const": (x[1, 5], x[2, 7])}[layout]
+    fn, plain = getattr(mulmod, op), getattr(mulmod, op + "_plain")
+    _same(fn(FR, a.to(dev), b.to(dev)), plain(FR, a, b))
+    _same(fn(FR, b.to(dev), a.to(dev)), plain(FR, b, a))
+
+
 @pytest.mark.parametrize("W,S", [(2048, 4), (96, 7), (1, 5)])
 def test_chain_cumprod(dev, W, S):
     x = _elements(FR, W * S, 75)

@@ -1,8 +1,9 @@
 """The port's prover (plain path) through the grand-product commitments:
 its lookup permutation indices, lookup phase, Z passes, instance
 absorption and transcript against the JAX package's on the same inputs,
-and — the slice as a whole — the proof bytes through the Z commitments
-against every toy fixture. Exact equality throughout."""
+and the proof bytes through the Z commitments against every toy fixture
+and a richer circuit's JAX bytes. The whole proofs are held in
+``test_torch_proof_*.py``. Exact equality throughout."""
 
 import hashlib
 import json
@@ -170,6 +171,16 @@ def test_transcript_matches_jax():
     assert tt.finalize() == jt.finalize()
 
 
+def _through_grand_products(params, pk, advice, instance, seed) -> bytes:
+    """The proof's bytes up to the challenge y (the first three phases of
+    create_proof)."""
+    pr = prover.Prover(params, pk, advice, instance, seed)
+    pr.advice()
+    pr.lookups()
+    pr.grand_products()
+    return pr.tw.finalize()
+
+
 @pytest.mark.parametrize("fixture", sorted(FIXTURES))
 def test_proof_through_grand_products_equals_fixture(fixture):
     """The slice as a whole: 2 advice, A′ and S′ of one lookup and one
@@ -182,7 +193,7 @@ def test_proof_through_grand_products_equals_fixture(fixture):
     circ, wit = toy(k)
     params = params_for(k)
     pk = keygen.from_numpy(cached_npz(circ), params, circ)
-    proof = prover.create_proof(params, pk, wit, {}, seed=g["blind_seed"])
+    proof = _through_grand_products(params, pk, wit, {}, g["blind_seed"])
     assert len(proof) == 192
     assert proof.hex() == g["proof_hex"][:384]
 
@@ -193,13 +204,21 @@ def test_proof_through_grand_products_equals_fixture(fixture):
 # and a second lookup over two columns.
 RICH_SEEDS = (3, 7)                     # SRS seed, blind seed
 # the JAX package's create_proof on this circuit and these seeds (the
-# `heavy` test below recomputes them): 4 advice, 4 A′/S′, 3 + 2 Z points
+# `heavy` test below recomputes them): its first 13 points (4 advice,
+# 4 A′/S′, 3 + 2 Z) and its whole 1792 bytes, for the witness that breaks
+# a copy and for the one that satisfies the circuit
 RICH_SHA256 = "8c3987a9ca2586ffedf1d9006bfe6aa6a821682a62a62e6cc56ecf755647d555"
+RICH_UNSAT_SHA256 = \
+    "cd58429dd941ebf5a50426712f2750db1ea3cf2137db78861b8f5e0f64d2b6c4"
+RICH_PROOF_SHA256 = \
+    "5672400aa262b44fe778989618d340c739f6a6c33a265f98dbc595881c0853e2"
 RICH_VK = "0x7ef7a34ad04072fef9deef929d9d9f26061530e2e9adec66477a17e380de8de"
 
 
-def _rich(ir, expr):
-    """(circuit, advice, instance) in the IR of either package."""
+def _rich(ir, expr, satisfied: bool = False):
+    """(circuit, advice, instance) in the IR of either package. The
+    witness breaks the copy b[1] = b[2] unless `satisfied` (a[2] = a[1]);
+    the circuit is the same either way."""
     from zkodst_tpu_torch.ops import u64
 
     def col(vals):
@@ -211,6 +230,8 @@ def _rich(ir, expr):
     a = [int(x) for x in r.integers(0, 16, 20)]
     td, ts = [0, 1, 2, 3, 7, 9], [0, 6, 7, 1 << 40, 2, 3]
     rows = r.integers(0, len(td), 20)
+    if satisfied:
+        a[2] = a[1]
     c, d = [td[i] for i in rows], [ts[i] for i in rows]
     sel = np.zeros((N, 2), np.uint32)
     sel[:8, 0] = 1
@@ -242,20 +263,25 @@ def test_rich_circuit_proof_equals_jax_bytes():
     tw = transcript.Blake2bWrite()
     pk.vk.hash_into(tw)
     assert hex(tw.squeeze_challenge()) == RICH_VK
-    proof = prover.create_proof(
+    proof = _through_grand_products(
         params, pk, {c: torch.from_numpy(v.astype(np.int64))
-                     for c, v in adv.items()}, inst, seed=RICH_SEEDS[1])
+                     for c, v in adv.items()}, inst, RICH_SEEDS[1])
     assert len(proof) == 32 * (4 + 4 + 3 + 2)
     assert hashlib.sha256(proof).hexdigest() == RICH_SHA256
 
 
 @pytest.mark.heavy
 def test_rich_circuit_pins_are_jax_bytes():
-    """The pins above are the JAX package's own (its full prove compiles
-    for minutes on the CPU, hence tier 2)."""
+    """The pins above are the JAX package's own, and the JAX verifier
+    accepts the port's whole proof of the satisfied witness and rejects
+    the other (its full prove compiles for minutes on the CPU, hence
+    tier 2)."""
     from zkodst_tpu.circuit import expr as jexpr
     from zkodst_tpu.proof import keygen as jkeygen
     from zkodst_tpu.proof import srs as jsrs
+    from zkodst_tpu.proof import verifier as jverifier
+    from zkodst_tpu_torch.circuit import expr as texpr
+    from zkodst_tpu_torch.proof import srs
 
     circ, adv, inst = _rich(jir, jexpr)
     params = jsrs.setup(5, seed=RICH_SEEDS[0])
@@ -265,3 +291,17 @@ def test_rich_circuit_pins_are_jax_bytes():
     assert hex(tw.squeeze_challenge()) == RICH_VK
     proof = jprover.create_proof(params, pk, adv, inst, seed=RICH_SEEDS[1])
     assert hashlib.sha256(proof[:32 * 13]).hexdigest() == RICH_SHA256
+    assert hashlib.sha256(proof).hexdigest() == RICH_UNSAT_SHA256
+    assert jverifier.verify_proof(params, pk.vk, inst, proof) is False
+    _, adv_ok, _ = _rich(jir, jexpr, satisfied=True)
+    proof = jprover.create_proof(params, pk, adv_ok, inst,
+                                 seed=RICH_SEEDS[1])
+    assert hashlib.sha256(proof).hexdigest() == RICH_PROOF_SHA256
+
+    tcirc, tadv, _ = _rich(tir, texpr, satisfied=True)
+    tparams = srs.setup(5, seed=RICH_SEEDS[0], device="cpu")
+    ported = prover.create_proof(
+        tparams, keygen.keygen(tparams, tcirc),
+        {c: torch.from_numpy(v.astype(np.int64)) for c, v in tadv.items()},
+        inst, seed=RICH_SEEDS[1])
+    assert jverifier.verify_proof(params, pk.vk, inst, ported) is True

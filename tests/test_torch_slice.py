@@ -3,8 +3,9 @@ seed 2, SRS seed 0): the first advice commitment equals the golden proof's
 first 32 bytes, and keygen gives the golden verifying-key transcript
 digest. The SRS is the port's own setup(17); on the CPU that takes
 minutes, and keygen's 35 full-width commitments far longer, hence `slow`.
-The card checks all 1088 bytes through the grand products and the digest
-in chip_smoke.py."""
+The card checks all 4480 bytes of the proof, the digest and the verifier
+in chip_smoke.py; tier 1 holds the whole proof on the toy, dry-run and
+rich circuits (``test_torch_proof_*.py``)."""
 
 import dataclasses
 import json

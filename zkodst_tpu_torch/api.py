@@ -1,14 +1,11 @@
-"""Top-level pipeline: setup (SRS and keygen) → witness → proof through
-the grand-product commitments, for the EIP-152 BLAKE2f circuit, with
-phase timing.
+"""Top-level pipeline: setup (SRS and keygen) → witness → proof → verify,
+for the EIP-152 BLAKE2f circuit, with phase timing.
 
-Counterpart of ``zkodst_tpu/api.py`` (:23-58, :75-101) for the slice
-ported so far. The phases are labelled ``setup``, ``setup.keygen``,
-``prove``, ``prove.witness``, ``prove.advice_commit``,
-``prove.lookup_permute`` and ``prove.grand_products_commit``. The proof
-stops after the challenge y
-(see :func:`.proof.prover.create_proof`); the quotient, the evaluations,
-the multiopen and the verifier come later.
+Counterpart of ``zkodst_tpu/api.py`` (:23-66, :75-101), v1 transcript and
+KZG. The phases are labelled ``setup``, ``setup.keygen``, ``prove``,
+``prove.witness``, ``prove.advice_commit``, ``prove.lookup_permute``,
+``prove.grand_products_commit``, ``prove.quotient``,
+``prove.evaluations``, ``prove.multiopen`` and ``verify``.
 """
 
 from __future__ import annotations
@@ -20,9 +17,9 @@ import numpy as np
 
 from .circuit import blake2f as blake2f_circuit
 from .ops import blake2, u64
-from .proof import keygen, prover, srs
+from .proof import keygen, prover, srs, verifier
 from .utils.device import resolve
-from .utils.timing import PROVE, SETUP, Metrics
+from .utils.timing import PROVE, SETUP, VERIFY, Metrics
 
 
 @dataclass
@@ -46,13 +43,20 @@ class Blake2fProver:
                                     seed, self.metrics)
 
     def prove(self, h, m, t, f, seed: int = 0) -> Tuple[bytes, dict]:
-        """h (B,8,2), m (B,16,2), t (B,2,2), f (B,) -> (proof bytes through
-        the grand-product commitments, instance dict of (n, 2) tensors)."""
+        """h (B,8,2), m (B,16,2), t (B,2,2), f (B,) -> (proof bytes,
+        instance dict of (n, 2) tensors)."""
         with self.metrics.phase(PROVE):
             adv, inst = self.witness(h, m, t, f)
             proof = prover.create_proof(self.params, self.pk, adv, inst,
                                         seed=seed, metrics=self.metrics)
         return proof, inst
+
+    def verify(self, instance: dict, proof: bytes) -> bool:
+        """True if `proof` proves the circuit on `instance` (the dict that
+        :meth:`prove` returned); on the host."""
+        with self.metrics.phase(VERIFY):
+            return verifier.verify_proof(self.params, self.pk.vk, instance,
+                                         proof)
 
 
 def setup_blake2f(k: int = 17, n_inst: int = 1, rounds: int = 12,

@@ -2,18 +2,22 @@
 //
 //   zk_mulmod        <- zkodst_tpu/pallas/mulmod.py:_mulmod_kernel
 //   zk_addmod        <- zkodst_tpu/pallas/mulmod.py:_addmod_kernel
+//   zk_submod        <- zkodst_tpu/pallas/mulmod.py:_submod_kernel
 //   zk_chain_cumprod <- zkodst_tpu/pallas/mulmod.py:_mul_chain_kernel
 //   zk_cumprod_tile  <- zkodst_tpu/pallas/mulmod.py:_mul_scan_tile_kernel
 //
 // An element is 8 contiguous 32-bit limbs (32 bytes, one L2 sector), read
-// and written as two 16-byte vectors. mulmod and addmod run one thread per
-// element; their second operand is either one element per thread
-// (b_stride = 1) or one constant for all (b_stride = 0: R², raw 1, β, γ,
-// θ^k), so a broadcast constant is never materialised. Both are bound on
-// the H100 by device memory (64 bytes moved per element with a constant b,
-// 96 without, against ~260 32-bit multiply results for a product and none
-// for a sum), so every intermediate stays in registers and each input and
-// output word is touched once.
+// and written as two 16-byte vectors. mulmod, addmod and submod run one
+// thread per element. Each operand repeats with a period of m elements:
+// output element i reads its element i mod m. m = n is one element per
+// thread, m = 1 one constant for all (R², raw 1, β, γ, θ^k, the
+// quotient's 1 − l_last and 0 − x), and 1 < m < n a column broadcast over
+// a leading batch dimension (SHPLONK's ω^j against every claim), so a
+// broadcast operand is never materialised. All three are bound on the
+// H100 by device memory (64 bytes moved per element with one constant
+// operand, 96 without, against ~260 32-bit multiply results for a product
+// and none for a sum or a difference), so every intermediate stays in
+// registers and each input and output word is touched once.
 //
 // The inclusive prefix product of n elements is three launches (the caller,
 // Field.cumprod_incl, chains them): chain_cumprod gives each of W threads a
@@ -43,17 +47,26 @@ __device__ __forceinline__ void store8(uint4* p, int64_t i, const uint32_t r[8])
   p[2 * i + 1] = make_uint4(r[4], r[5], r[6], r[7]);
 }
 
-template <class M, bool kAdd>
+enum Op { kMul, kAdd, kSub };
+
+__device__ __forceinline__ int64_t wrap(int64_t i, int64_t m) {
+  return m == 1 ? 0 : (i < m ? i : i % m);
+}
+
+template <class M, Op kOp>
 __global__ void __launch_bounds__(kThreads)
 binop_kernel(const uint4* __restrict__ a, const uint4* __restrict__ b,
-             uint4* __restrict__ o, int64_t n, int64_t b_stride) {
+             uint4* __restrict__ o, int64_t n, int64_t a_period,
+             int64_t b_period) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   uint32_t x[8], y[8], r[8];
-  load8(a, i, x);
-  load8(b, i * b_stride, y);
-  if (kAdd)
+  load8(a, wrap(i, a_period), x);
+  load8(b, wrap(i, b_period), y);
+  if (kOp == kAdd)
     zk::add_mod<M>(x, y, r);
+  else if (kOp == kSub)
+    zk::sub_mod<M>(x, y, r);
   else
     zk::mont_mul<M>(x, y, r);
   store8(o, i, r);
@@ -135,33 +148,44 @@ unsigned grid(int64_t work, int threads) {
   return (unsigned)((work + threads - 1) / threads);
 }
 
-template <bool kAdd>
+template <Op kOp>
 int launch_binop(const void* a, const void* b, void* o, long long n,
-                 long long b_stride, int field, void* stream) {
+                 long long a_period, long long b_period, int field,
+                 void* stream) {
   if (n <= 0) return 0;
+  if (a_period <= 0 || b_period <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (field == 0)
-    binop_kernel<zk::Fr, kAdd><<<grid(n, kThreads), kThreads, 0, s>>>(
-        (const uint4*)a, (const uint4*)b, (uint4*)o, n, b_stride);
+    binop_kernel<zk::Fr, kOp><<<grid(n, kThreads), kThreads, 0, s>>>(
+        (const uint4*)a, (const uint4*)b, (uint4*)o, n, a_period, b_period);
   else
-    binop_kernel<zk::Fq, kAdd><<<grid(n, kThreads), kThreads, 0, s>>>(
-        (const uint4*)a, (const uint4*)b, (uint4*)o, n, b_stride);
+    binop_kernel<zk::Fq, kOp><<<grid(n, kThreads), kThreads, 0, s>>>(
+        (const uint4*)a, (const uint4*)b, (uint4*)o, n, a_period, b_period);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError().
-// field: 0 = Fr, 1 = Fq. b_stride: 1 = b holds n elements, 0 = b holds one
-// element used for all.
+// field: 0 = Fr, 1 = Fq. n output elements; a_period / b_period: the
+// operand holds that many elements and element i of the output reads its
+// element i mod period (n: one per output element, 1: one for all).
 extern "C" int zk_mulmod(const void* a, const void* b, void* o, long long n,
-                         long long b_stride, int field, void* stream) {
-  return launch_binop<false>(a, b, o, n, b_stride, field, stream);
+                         long long a_period, long long b_period, int field,
+                         void* stream) {
+  return launch_binop<kMul>(a, b, o, n, a_period, b_period, field, stream);
 }
 
 extern "C" int zk_addmod(const void* a, const void* b, void* o, long long n,
-                         long long b_stride, int field, void* stream) {
-  return launch_binop<true>(a, b, o, n, b_stride, field, stream);
+                         long long a_period, long long b_period, int field,
+                         void* stream) {
+  return launch_binop<kAdd>(a, b, o, n, a_period, b_period, field, stream);
+}
+
+extern "C" int zk_submod(const void* a, const void* b, void* o, long long n,
+                         long long a_period, long long b_period, int field,
+                         void* stream) {
+  return launch_binop<kSub>(a, b, o, n, a_period, b_period, field, stream);
 }
 
 // x, o: W·S elements; run l is elements [l·S, (l+1)·S).

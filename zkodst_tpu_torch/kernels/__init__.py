@@ -16,6 +16,7 @@ from . import build, ec, mulmod, ntt
 WRAPPERS = {
     "mulmod": (mulmod.mulmod, "zk_mulmod"),
     "addmod": (mulmod.addmod, "zk_addmod"),
+    "submod": (mulmod.submod, "zk_submod"),
     "chain_cumprod": (mulmod.chain_cumprod, "zk_chain_cumprod"),
     "cumprod_tile": (mulmod.cumprod_tile, "zk_cumprod_tile"),
     "ntt_tail": (ntt.ntt_tail, "zk_ntt_tail"),

@@ -30,8 +30,9 @@ _I = ctypes.c_int
 # C entry points and their argument types (every one returns cudaError_t)
 SIGNATURES = {
     "mulmod": {
-        "zk_mulmod": [_P, _P, _P, _LL, _LL, _I, _P],
-        "zk_addmod": [_P, _P, _P, _LL, _LL, _I, _P],
+        "zk_mulmod": [_P, _P, _P, _LL, _LL, _LL, _I, _P],
+        "zk_addmod": [_P, _P, _P, _LL, _LL, _LL, _I, _P],
+        "zk_submod": [_P, _P, _P, _LL, _LL, _LL, _I, _P],
         "zk_chain_cumprod": [_P, _P, _LL, _LL, _I, _P],
         "zk_cumprod_tile": [_P, _P, _LL, _I, _P],
     },

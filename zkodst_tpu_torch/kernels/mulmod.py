@@ -1,4 +1,4 @@
-"""Kernels 1, 2, 4 and 5: elementwise field products and sums, and the
+"""Kernels 1–5: elementwise field products, sums and differences, and the
 prefix product (CUDA source ``cuda/csrc/mulmod.cu``), each beside its
 plain PyTorch twin.
 
@@ -7,16 +7,20 @@ wrapper                replaces (``zkodst_tpu/pallas/mulmod.py``)
 =====================  ===============================================
 ``mulmod``             ``_mulmod_kernel`` (via ``mulmod_t``)
 ``addmod``             ``_addmod_kernel`` (via ``addmod_t``)
+``submod``             ``_submod_kernel`` (via ``submod_t``)
 ``chain_cumprod``      ``_mul_chain_kernel`` (via ``chain_cumprod_t``)
 ``cumprod_tile``       ``_mul_scan_tile_kernel`` (via ``cumprod_tile_t``)
 =====================  ===============================================
 
-mulmod and addmod are bound on the card by memory (96 bytes per element,
-64 when the second operand is one broadcast constant, which the kernel
+mulmod, addmod and submod are bound on the card by memory (96 bytes per
+element, 64 when one operand is a broadcast constant, which the kernel
 reads once instead of a materialised copy): the R² and raw-1 multipliers
 of the witness and MSM scalars, β, γ and the θ powers of the grand
-products. ``chain_cumprod`` gives each of W threads a run of S = n/W
-contiguous elements; ``cumprod_tile`` scans up to a few thousand elements
+products, the quotient's challenges and constants (``1 − l_last``,
+``0 − x``). An operand broadcast over leading dimensions (SHPLONK's ω^j
+against every claim) is read with the period of the column it repeats.
+``chain_cumprod`` gives each of W threads a run of S = n/W contiguous
+elements; ``cumprod_tile`` scans up to a few thousand elements
 in one block. :meth:`..ops.field.Field.cumprod_incl` chains them with
 mulmod. Every output is a canonical field value, so a twin need not repeat
 its kernel's order of products to agree with it limb for limb.
@@ -36,10 +40,17 @@ def _ready(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _is_const(b: torch.Tensor) -> bool:
-    """True if every element of b is the same 8 limbs (a broadcast)."""
-    return b.stride(-1) == 1 and all(
-        s == 0 or d == 1 for s, d in zip(b.stride()[:-1], b.shape[:-1]))
+def _operand(x: torch.Tensor):
+    """(tensor of m elements, m) such that element i of the broadcast x is
+    element i mod m of the tensor: x repeats one block over its leading
+    broadcast (stride-0) dimensions. Any other layout is copied whole."""
+    lead = 0
+    while lead < x.dim() - 1 and (x.stride(lead) == 0 or x.shape[lead] == 1):
+        lead += 1
+    base = x[(0,) * lead]
+    if not base.is_contiguous():
+        base = x
+    return _ready(base), base.numel() // 8
 
 
 def _check(name: str, *xs: torch.Tensor) -> None:
@@ -53,12 +64,11 @@ def _check(name: str, *xs: torch.Tensor) -> None:
 
 def _binop(entry: str, F: Field, a: torch.Tensor,
            b: torch.Tensor) -> torch.Tensor:
-    const = _is_const(b)
-    a = _ready(a)
-    b = _ready(b[(0,) * (b.dim() - 1)] if const else b)
-    out = torch.empty_like(a)
+    """Launch `entry` on broadcast operands a, b of one shape."""
+    out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    (a, pa), (b, pb) = _operand(a), _operand(b)
     call("mulmod", entry, a.data_ptr(), b.data_ptr(), out.data_ptr(),
-         a.numel() // 8, 0 if const else 1, F.kernel_id)
+         out.numel() // 8, pa, pb, F.kernel_id)
     return out
 
 
@@ -92,6 +102,22 @@ def addmod(F: Field, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return addmod_plain(F, a, b)
     _check("addmod", a, b)
     return _binop("zk_addmod", F, a, b)
+
+
+# -- kernel 3: (a − b) mod p --------------------------------------------------
+
+def submod_plain(F: Field, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a, b = torch.broadcast_tensors(a, b)
+    return to_i32(F.sub64(to_i64(a), to_i64(b)))
+
+
+def submod(F: Field, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., 8) int32 limbs -> (..., 8) field differences (broadcast)."""
+    a, b = torch.broadcast_tensors(a, b)
+    if a.device.type == "cpu":
+        return submod_plain(F, a, b)
+    _check("submod", a, b)
+    return _binop("zk_submod", F, a, b)
 
 
 # -- kernel 4: the products along each run of S contiguous elements -----------

@@ -11,8 +11,8 @@ The plain arithmetic (``*64`` methods) works on ``int64`` tensors holding
 32-bit limb values, because CPU ``torch.uint32`` has no add, ``>>`` or
 ``<``; the Montgomery product splits operands into 16-bit halves so every
 partial product and column sum stays exact in int64. :meth:`Field.mul`,
-:meth:`Field.add` and :meth:`Field.cumprod_incl` go through the wrappers
-of kernels/mulmod.py, which launch the CUDA kernels for tensors on the
+:meth:`Field.add`, :meth:`Field.sub` and :meth:`Field.cumprod_incl` go
+through the wrappers of kernels/mulmod.py, which launch the CUDA kernels for tensors on the
 card.
 """
 
@@ -180,9 +180,10 @@ class Field:
         return addmod(self, a, b)
 
     def sub(self, a, b):
-        """(a − b) mod p in plain PyTorch on any device: no ported phase
-        subtracts yet (the quotient's F.sub, TPU kernel 3, comes with it)."""
-        return to_i32(self.sub64(to_i64(a), to_i64(b)))
+        """(a − b) mod p (kernel 3 on the card)."""
+        from ..kernels.mulmod import submod
+
+        return submod(self, a, b)
 
     def inv(self, a):
         """Elementwise a^(p−2) (0 maps to 0), on the host: the tensor is
@@ -236,8 +237,19 @@ class Field:
             out = out.reshape(S * W, L)[:n]
         return out.flip(0) if reverse else out
 
+    def sum(self, a: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Σ along `dim` by halving: the first half plus the second
+        (kernel 2), an odd last row carried to the next round."""
+        while a.shape[dim] > 1:
+            m = a.shape[dim]
+            h = m // 2
+            s = self.add(a.narrow(dim, 0, h), a.narrow(dim, h, h))
+            a = torch.cat([s, a.narrow(dim, 2 * h, 1)], dim) if m % 2 else s
+        return a.select(dim, 0)
+
     def neg(self, a):
-        return self.sub(torch.zeros_like(a), a)
+        """(0 − a) mod p, the zero a broadcast constant (kernel 3)."""
+        return self.sub(torch.zeros(L, dtype=torch.int32, device=a.device), a)
 
     # -- plain arithmetic on int64 limb values ---------------------------------
     def _p64(self, device) -> torch.Tensor:

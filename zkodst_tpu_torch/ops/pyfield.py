@@ -1,8 +1,8 @@
 """Host-side prime-field reference arithmetic (Python ints).
 
 A copy of ``zkodst_tpu/ops/pyfield.py`` restricted to BN254: the constants,
-the Montgomery radix, roots of unity and the int oracles the port's tests
-and host code use.
+the Montgomery radix, roots of unity, square roots (point decompression)
+and the int oracles the port's tests and host code use.
 """
 
 from __future__ import annotations
@@ -68,6 +68,29 @@ class PF:
         while self.is_square(g):
             g += 1
         return g
+
+    def sqrt(self, a: int):
+        """Tonelli–Shanks; returns a root or None."""
+        a %= self.p
+        if a == 0:
+            return 0
+        if not self.is_square(a):
+            return None
+        p = self.p
+        s = self.two_adicity
+        q = (p - 1) >> s
+        z = pow(self.smallest_qnr(), q, p)
+        m, c, t, r = s, z, pow(a, q, p), pow(a, (q + 1) // 2, p)
+        while t != 1:
+            i, tt = 0, t
+            while tt != 1:
+                tt = tt * tt % p
+                i += 1
+            b = pow(c, 1 << (m - i - 1), p)
+            m, c = i, b * b % p
+            t = t * c % p
+            r = r * b % p
+        return r
 
     def root_of_unity(self, log_order: int) -> int:
         """A primitive 2^log_order-th root of unity: w0 = t^((p-1)/2^S) for

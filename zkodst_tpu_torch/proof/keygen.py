@@ -4,25 +4,24 @@ Counterpart of ``zkodst_tpu/proof/keygen.py`` (:36-63, :82-145, :148-165,
 :168-291) without its disk cache: the fixed columns in evaluation and
 coefficient form, the copy-constraint permutation σ as per-column
 (column, row) index maps and as the polynomials δ^col'·ω^row', and the
-commitments to both, which the verifying key binds into the transcript.
-:func:`from_numpy` turns a proving key cached by the reference
-(``pk_<fingerprint>.npz``) into this module's :class:`ProvingKey`.
-
-The extended-domain selector tables (``ext_selectors``) come with the
-quotient.
+commitments to both, which the verifying key binds into the transcript,
+and the Lagrange selector tables on the quotient's extended coset
+(``ext_selectors``, made on the device). :func:`from_numpy` turns a
+proving key cached by the reference (``pk_<fingerprint>.npz``) into this
+module's :class:`ProvingKey`.
 """
 
 from __future__ import annotations
 
 import hashlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..circuit.ir import CircuitDef, u64_cols_to_field
-from ..ops.field import FR
+from ..ops.field import FR, from_limbs16
 from ..ops.pyfield import FR as PFR
 from . import pcs, srs
 from .domain import DELTA, Domain
@@ -64,8 +63,11 @@ class ProvingKey:
     sigma_evals: List[torch.Tensor]
     sigma_coeffs: List[torch.Tensor]
     roots: torch.Tensor                        # ω^j table (n, 8)
-    # per permutation chunk: (σ stack, δ^col·ω^row stack), made at first use
-    chunk_tables: Optional[list] = None
+    # l0 / llast / lblind / zh_inv on the extended coset, (4n, 8) each
+    ext_selectors: Optional[Dict[str, torch.Tensor]] = None
+    # tables the prover derives from the key alone, made at first use and
+    # kept with the key; only proof/prover.py reads or writes it
+    prover_cache: dict = field(default_factory=dict)
 
 
 def _roots_dev(dom: Domain, device) -> torch.Tensor:
@@ -181,9 +183,12 @@ def _key(params: srs.ParamsKZG, circ: CircuitDef, sigma_maps) -> ProvingKey:
 
 def keygen(params: srs.ParamsKZG, circ: CircuitDef,
            msm_window: int = 13) -> ProvingKey:
-    """The proving key of `circ` on the SRS's device: its polynomials and
-    their commitments (full-width MSMs through kernels 8–12)."""
+    """The proving key of `circ` on the SRS's device: its polynomials,
+    their commitments (full-width MSMs through kernels 8–12) and the
+    extended-coset selectors."""
     pk = _key(params, circ, None)
+    pk.ext_selectors = Domain(circ.k).selectors_extended(
+        params.g1_lagrange.device)
     names = sorted(pk.fixed_evals)
     pk.vk.fixed_commitments = dict(zip(names, pcs.commit_evals_many(
         params, torch.stack([pk.fixed_evals[nm] for nm in names]),
@@ -195,10 +200,10 @@ def keygen(params: srs.ParamsKZG, circ: CircuitDef,
 
 def from_numpy(npz, params: srs.ParamsKZG, circ: CircuitDef) -> ProvingKey:
     """The proving key from the reference's cached arrays (a loaded
-    ``pk_<fingerprint>.npz``): σ maps (``sig_col``, ``sig_row``) and the
+    ``pk_<fingerprint>.npz``): σ maps (``sig_col``, ``sig_row``), the
     commitments (``*_comm_u32`` affine limbs, ``*_comm_flag`` 0 for the
-    identity) are read; the polynomials are made on the SRS's device. The
-    ``sel_*`` tables are left for the quotient."""
+    identity) and the extended-coset selectors (``sel_*``, 16-bit limbs)
+    are read; the polynomials are made on the SRS's device."""
     nperm = len(perm_columns(circ))
     pk = _key(params, circ, [(npz["sig_col"][i], npz["sig_row"][i])
                              for i in range(nperm)])
@@ -212,4 +217,7 @@ def from_numpy(npz, params: srs.ParamsKZG, circ: CircuitDef) -> ProvingKey:
         sorted(circ.fixed), npz["fixed_comm_u32"], npz["fixed_comm_flag"])}
     pk.vk.sigma_commitments = [dec(pt, fl) for pt, fl in zip(
         npz["sigma_comm_u32"], npz["sigma_comm_flag"])]
+    pk.ext_selectors = {
+        k: from_limbs16(npz[f"sel_{k}"], params.g1_lagrange.device)
+        for k in ("l0", "llast", "lblind", "zh_inv")}
     return pk

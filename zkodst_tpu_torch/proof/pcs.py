@@ -1,8 +1,10 @@
-"""Commitments of evaluation-form columns (KZG).
+"""Commitments (KZG).
 
-The KZG half of ``zkodst_tpu/proof/pcs.py`` ``commit_evals_many``
-(:44-68): the Lagrange-basis MSM of :func:`.srs.commit_lagrange_many`. The
-IPA backend is not ported.
+The KZG half of ``zkodst_tpu/proof/pcs.py``: ``commit_evals_many``
+(:44-68, the Lagrange-basis MSM of :func:`.srs.commit_lagrange_many`) and
+``commit_coeff_many`` (:71-89, the monomial basis). The multiopen of
+``open_all``/``verify_all`` (:92-114) is SHPLONK's alone here, called
+directly (:mod:`.shplonk`): the IPA backend is not ported.
 """
 
 from __future__ import annotations
@@ -31,3 +33,15 @@ def commit_evals_many(params: srs.ParamsKZG, evals_batch: torch.Tensor,
                                         body_bits=body_bits,
                                         tail_rows=tail_rows)
     return out
+
+
+def commit_coeff_many(params: srs.ParamsKZG, coeffs_batch: torch.Tensor,
+                      c: int) -> List:
+    """Commit B coefficient-form polynomials (B, m, 8) -> B affine points,
+    COMMIT_BATCH columns per MSM."""
+    out = []
+    for i in range(0, coeffs_batch.shape[0], COMMIT_BATCH):
+        out += srs.commit_coeff_many(params,
+                                     coeffs_batch[i: i + COMMIT_BATCH], c)
+    return out
+

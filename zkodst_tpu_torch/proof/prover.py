@@ -1,17 +1,18 @@
-"""The prover, through the grand-product commitments.
+"""The prover: ``create_proof``, the whole PLONKish IOP on the device.
 
 Counterpart of ``zkodst_tpu/proof/prover.py`` ``create_proof``
-(:563-748) up to the challenge y: the verifying key and the instances
-enter the transcript, then the advice commitments, θ, the lookup
-permutations and the A′/S′ commitments, β and γ, the permutation and
-lookup grand products Z and their commitments, y. The quotient, the
-evaluations and the multiopen come in later slices; they consume the
-coefficient forms that :class:`Prover` keeps (``pre_coeffs``).
+(:563-852): the verifying key and the instances enter the transcript,
+then the advice commitments, θ, the lookup permutations and the A′/S′
+commitments, β and γ, the permutation and lookup grand products Z and
+their commitments, y; the quotient h on the extended coset (the
+constraint system of :mod:`.constraints` over coset-extended columns) and
+its four commitments, x; the evaluations at x·ω^r in ``query_schedule``
+order; the SHPLONK multiopen (W, W′).
 
 Blinds come from one ``random.Random(("zkodst-blind", seed))`` drawn in
 the reference's order — advice (one tail per column), lookups (A′ then S′
 per lookup), permutation Z (one per chunk), lookup Z (one per lookup) — so
-the bytes equal the reference proof's prefix.
+the bytes equal the reference proof's. SHPLONK over KZG draws none.
 """
 
 from __future__ import annotations
@@ -20,20 +21,24 @@ import contextlib
 import hashlib
 import random
 import secrets
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..circuit.ir import BLINDING_ROWS, CircuitDef, u64_cols_to_field
 from ..ops.field import FR
-from . import pcs, srs
-from .domain import DELTA, Domain
+from ..ops.ntt import powers_table
+from ..ops.pyfield import FR as PFR
+from . import constraints, pcs, shplonk, srs
+from .domain import DELTA, EXT_FACTOR, Domain
 from .keygen import ProvingKey
 from .transcript import Blake2bWrite
 
 # Pippenger window width of every commit in the proof (the reference's)
 MSM_C = 13
+# columns per coset extension of the quotient (the reference's group)
+EXT_GROUP = 15
 
 
 def _phase(metrics, label: str):
@@ -229,18 +234,20 @@ def lookup_z_pass(a_cmp, s_cmp, ap, sp, bk, gk, u: int):
 def chunk_tables(pk: ProvingKey):
     """Per permutation chunk, its σ columns and identity columns
     δ^col·ω^row: challenge-independent, made once per key."""
-    if pk.chunk_tables is None:
+    cache = pk.prover_cache
+    if "chunk_tables" not in cache:
         vk = pk.vk
         col_of = {c: i for i, c in enumerate(vk.perm_cols)}
         dev = pk.roots.device
-        pk.chunk_tables = []
+        tables = []
         for chunk in vk.perm_chunks:
             gis = [col_of[c] for c in chunk]
             sig = torch.stack([pk.sigma_evals[gi] for gi in gis])
             dk = FR.from_ints([pow(DELTA, gi, FR.p) for gi in gis], dev)
             ident = FR.mul(pk.roots[None], dk[:, None, :])
-            pk.chunk_tables.append((sig, ident))
-    return pk.chunk_tables
+            tables.append((sig, ident))
+        cache["chunk_tables"] = tables
+    return cache["chunk_tables"]
 
 
 # ---------------------------------------------------------------------------
@@ -263,14 +270,153 @@ def absorb_instances(tw: Blake2bWrite, circ: CircuitDef,
 
 
 # ---------------------------------------------------------------------------
+# evaluations
+# ---------------------------------------------------------------------------
+
+def eval_many(coeffs_list: List[torch.Tensor], points: List[int]):
+    """Evaluate every polynomial at every point -> [M][P] host ints
+    (``prover.py:56-130``): per point, its power table (the reference's
+    ``powers_dev``, here :func:`..ops.ntt.powers_table`), one product with
+    the (M, n) coefficient stack and a sum along n (``field_sum``, here
+    :meth:`..ops.field.Field.sum`)."""
+    stack = torch.stack(coeffs_list)
+    n, dev = stack.shape[1], stack.device
+    grid = torch.stack([
+        FR.sum(FR.mul(stack, powers_table(FR, x, n, dev)), dim=1)
+        for x in points], dim=1)
+    vals = FR.to_ints(grid)
+    return [[int(v) for v in row] for row in vals]
+
+
+def query_schedule(vk) -> List[Tuple[str, Tuple[int, ...]]]:
+    """[(polynomial name, rotations)] in canonical order."""
+    circ: CircuitDef = vk.circ
+    u = circ.usable_rows
+    rots: Dict[str, set] = {}
+    for g in circ.gates:
+        for col, r in g.poly.vars():
+            rots.setdefault(col, set()).add(r)
+    out = []
+    for name in circ.advice_names:
+        out.append((name, tuple(sorted(rots.get(name, set()) | {0}))))
+    for name in sorted(circ.fixed):
+        out.append((name, tuple(sorted(rots.get(name, set()) | {0}))))
+    for i in range(len(vk.perm_cols)):
+        out.append((f"perm.sigma{i}", (0,)))
+    for lk in circ.lookups:
+        out.append((f"{lk.name}.a_perm", (-1, 0)))
+        out.append((f"{lk.name}.s_perm", (0,)))
+        out.append((f"{lk.name}.z", (0, 1)))
+    nz = len(vk.perm_chunks)
+    for j in range(nz):
+        rr = (0, 1) if j == nz - 1 else (0, 1, u)
+        out.append((f"perm.z{j}", rr))
+    for i in range(EXT_FACTOR):
+        out.append((f"h{i}", (0,)))
+    return out
+
+
+def rotation_point(dom: Domain, x: int, rot: int) -> int:
+    return x * pow(dom.omega, rot, PFR.p) % PFR.p
+
+
+# ---------------------------------------------------------------------------
+# the quotient's constraint contexts
+# ---------------------------------------------------------------------------
+
+class _RecCtx:
+    """Dry-run context: records which columns the constraint system reads
+    (host ints, no device work)."""
+
+    def __init__(self):
+        self.names = set()
+        self.l0 = self.llast = self.active = 1
+        self.theta = self.beta = self.gamma = self.y = 1
+
+    def const(self, v):
+        return 1
+
+    def get(self, name, rot):
+        self.names.add(name)
+        return 1
+
+    def identity(self, gi):
+        return 1
+
+    def add(self, a, b):
+        return 0
+
+    def sub(self, a, b):
+        return 0
+
+    def mul(self, a, b):
+        return 0
+
+
+class _ExtCtx:
+    """The constraint system over extended-coset columns (4n, 8), eager:
+    every add, sub and mul is one launch of kernel 2, 3 or 1. Constants
+    and challenges stay (8,) tensors that the kernels read once as
+    broadcast operands; a rotation by r rows of H is a roll by r·4 rows
+    of the coset, made once per (column, rotation)."""
+
+    def __init__(self, exts: Dict[str, torch.Tensor],
+                 sels: Dict[str, torch.Tensor], chal: Dict[str, int],
+                 xext: torch.Tensor):
+        self.exts = exts
+        self.dev = xext.device
+        self._rolled: Dict[Tuple[str, int], torch.Tensor] = {}
+        self.l0 = sels["l0"]
+        self.llast = sels["llast"]
+        self.active = FR.sub(FR.sub(self.const(1), self.llast),
+                             sels["lblind"])
+        for name in ("theta", "beta", "gamma", "y"):
+            setattr(self, name, self.const(chal[name]))
+        self.xext = xext
+
+    def const(self, v: int) -> torch.Tensor:
+        return FR.from_ints(v, self.dev)
+
+    def get(self, name: str, rot: int) -> torch.Tensor:
+        key = (name, rot)
+        if key not in self._rolled:
+            ext = self.exts[name]
+            self._rolled[key] = (torch.roll(ext, -rot * EXT_FACTOR, dims=0)
+                                 if rot else ext)
+        return self._rolled[key]
+
+    def identity(self, gi: int) -> torch.Tensor:
+        return FR.mul(self.const(pow(DELTA, gi, PFR.p)), self.xext)
+
+    def add(self, a, b):
+        return FR.add(a, b)
+
+    def sub(self, a, b):
+        return FR.sub(a, b)
+
+    def mul(self, a, b):
+        return FR.mul(a, b)
+
+
+def quotient_eval(vk, exts, sels, chal, xext) -> torch.Tensor:
+    """h on the extended coset: the y-folded constraint numerator times
+    1/Z_H (``prover.py:509-518``)."""
+    ctx = _ExtCtx(exts, sels, chal, xext)
+    numer = constraints.fold_y(ctx, constraints.enumerate_constraints(vk,
+                                                                      ctx))
+    return FR.mul(numer, sels["zh_inv"])
+
+
+# ---------------------------------------------------------------------------
 # create_proof
 # ---------------------------------------------------------------------------
 
 class Prover:
     """One proof in progress: the transcript, the blind stream, every
-    committed column in evaluation form (``evals``) and the coefficient
-    forms made early for the quotient (``pre_coeffs``). The phase methods
-    run in order; :func:`create_proof` drives them."""
+    committed column in evaluation form (``evals``), the coefficient form
+    of each column the proof makes (``coeffs``, computed as each phase
+    produces its columns) and the opening claims. The phase methods run in
+    order; :func:`create_proof` drives them."""
 
     def __init__(self, params: srs.ParamsKZG, pk: ProvingKey,
                  advice_u64: Dict[str, torch.Tensor],
@@ -285,7 +431,7 @@ class Prover:
                                  else ("zkodst-blind", seed).__repr__())
         self.tw = Blake2bWrite()
         self.evals: Dict[str, torch.Tensor] = {}
-        self.pre_coeffs: Dict[str, torch.Tensor] = {}
+        self.coeffs: Dict[str, torch.Tensor] = {}
         self.challenges: Dict[str, int] = {}
         pk.vk.hash_into(self.tw)
         absorb_instances(self.tw, self.circ, instance_u64)
@@ -294,6 +440,8 @@ class Prover:
                 FR, _u64_tensor(instance_u64[name], self.dev))
         for name, fe in pk.fixed_evals.items():
             self.evals[name] = fe
+        for i, se in enumerate(pk.sigma_evals):
+            self.evals[f"perm.sigma{i}"] = se
 
     def _pre_intt(self, names: List[str]) -> None:
         """Coefficient forms of final columns, for the quotient: one
@@ -301,7 +449,15 @@ class Prover:
         if names:
             coeffs = self.dom.intt(torch.stack([self.evals[nm]
                                                 for nm in names]))
-            self.pre_coeffs.update(zip(names, coeffs))
+            self.coeffs.update(zip(names, coeffs))
+
+    def _all_coeffs(self) -> Dict[str, torch.Tensor]:
+        """The proof's coefficient forms and the key's (fixed and σ)."""
+        out = dict(self.coeffs)
+        out.update(self.pk.fixed_coeffs)
+        out.update((f"perm.sigma{i}", sc)
+                   for i, sc in enumerate(self.pk.sigma_coeffs))
+        return out
 
     def advice(self) -> None:
         circ = self.circ
@@ -373,14 +529,91 @@ class Prover:
                 self.tw.write_point(pt)
         self.challenges["y"] = self.tw.squeeze_challenge()
 
+    def _extend(self, coeffs: Dict[str, torch.Tensor],
+                names: List[str]) -> Dict[str, torch.Tensor]:
+        """Coset extensions of `names`, EXT_GROUP columns per transform."""
+        out = {}
+        for i in range(0, len(names), EXT_GROUP):
+            grp = names[i: i + EXT_GROUP]
+            ext = self.dom.coeff_to_extended(
+                torch.stack([coeffs[nm] for nm in grp]))
+            out.update(zip(grp, ext))
+        return out
+
+    def quotient(self) -> None:
+        """h = numerator / Z_H on the extended coset, its coefficients cut
+        into EXT_FACTOR polynomials of n and committed (phase
+        ``prove.quotient``, ``prover.py:751-828``). The fixed and σ
+        extensions depend on the key alone and are kept with it."""
+        pk, dom, n = self.pk, self.dom, self.dom.n
+        with _phase(self.metrics, "prove.quotient"):
+            coeffs = self._all_coeffs()
+            cache = pk.prover_cache
+            if "quotient_names" not in cache:
+                rec = _RecCtx()
+                constraints.enumerate_constraints(pk.vk, rec)
+                names = sorted(rec.names)
+                e1 = torch.zeros((n, 8), dtype=torch.int32, device=self.dev)
+                e1[1] = _one(self.dev)
+                static = set(pk.fixed_coeffs) | {
+                    f"perm.sigma{i}" for i in range(len(pk.sigma_coeffs))}
+                cache["quotient_names"] = names
+                cache["xext"] = dom.coeff_to_extended(e1)
+                cache["static_exts"] = self._extend(
+                    coeffs, [nm for nm in names if nm in static])
+            names, static_exts = cache["quotient_names"], cache["static_exts"]
+            exts = dict(static_exts)
+            exts.update(self._extend(
+                coeffs, [nm for nm in names if nm not in static_exts]))
+            chal = {k: self.challenges[k]
+                    for k in ("theta", "beta", "gamma", "y")}
+            h_ext = quotient_eval(pk.vk, exts, pk.ext_selectors, chal,
+                                  cache["xext"])
+            del exts                     # the extended columns: free them
+            self.lk_data = None
+            h_coeff = dom.extended_to_coeff(h_ext).reshape(EXT_FACTOR, n, 8)
+            del h_ext
+            h_evals = dom.ntt(h_coeff)
+            for i in range(EXT_FACTOR):
+                self.coeffs[f"h{i}"] = h_coeff[i]
+                self.evals[f"h{i}"] = h_evals[i]
+            for pt in pcs.commit_coeff_many(self.params, h_coeff, MSM_C):
+                self.tw.write_point(pt)
+        self.challenges["x"] = self.tw.squeeze_challenge()
+
+    def evaluations(self) -> None:
+        """Every queried polynomial at x·ω^r, written in ``query_schedule``
+        order (phase ``prove.evaluations``); one claim per polynomial."""
+        dom, x = self.dom, self.challenges["x"]
+        sched = query_schedule(self.pk.vk)
+        all_rots = sorted({r for _, rots in sched for r in rots})
+        rot_pos = {r: i for i, r in enumerate(all_rots)}
+        coeffs = self._all_coeffs()
+        with _phase(self.metrics, "prove.evaluations"):
+            grid = eval_many([coeffs[name] for name, _ in sched],
+                             [rotation_point(dom, x, r) for r in all_rots])
+        self.claims = []
+        for i, (name, rots) in enumerate(sched):
+            evs = [grid[i][rot_pos[r]] for r in rots]
+            for e in evs:
+                self.tw.write_scalar(e)
+            self.claims.append(shplonk.Claim(
+                tuple(rotation_point(dom, x, r) for r in rots), tuple(evs),
+                evals_dev=self.evals[name]))
+
+    def multiopen(self) -> None:
+        """SHPLONK's W and W′ (phase ``prove.multiopen``)."""
+        with _phase(self.metrics, "prove.multiopen"):
+            shplonk.open_claims(self.params, self.dom, self.claims, self.tw)
+
 
 def create_proof(params: srs.ParamsKZG, pk: ProvingKey,
                  advice_u64: Dict[str, torch.Tensor],
                  instance_u64: Dict[str, torch.Tensor],
                  seed: Optional[int] = None, metrics=None) -> bytes:
-    """The proof's bytes through the grand-product commitments: the advice
-    points, the A′/S′ points, the permutation then lookup Z points. It
-    stops after squeezing y, where the quotient begins.
+    """The proof's bytes: the advice points, the A′/S′ points, the
+    permutation then lookup Z points, the four h points, the evaluations
+    and SHPLONK's W and W′.
 
     advice_u64 / instance_u64: (n, 2) u64 pairs per column (tensors on the
     SRS's device; instance columns may also be numpy). seed: None draws the
@@ -390,4 +623,7 @@ def create_proof(params: srs.ParamsKZG, pk: ProvingKey,
     pr.advice()
     pr.lookups()
     pr.grand_products()
+    pr.quotient()
+    pr.evaluations()
+    pr.multiopen()
     return pr.tw.finalize()

@@ -1,9 +1,10 @@
-"""KZG structured reference string and Lagrange-basis commitments.
+"""KZG structured reference string and commitments.
 
 Counterpart of ``zkodst_tpu/proof/srs.py``: a testing SRS from a seeded τ
 with the monomial basis [τ^i]G and the Lagrange basis [L_i(τ)]G, made on
 the device by a fixed-base windowed ladder, and batched commitments of
-evaluation-form polynomials through the Pippenger MSM.
+evaluation-form polynomials (Lagrange basis) and of coefficient-form
+polynomials (monomial basis) through the Pippenger MSM.
 """
 
 from __future__ import annotations
@@ -164,3 +165,22 @@ def commit_lagrange_many(params: ParamsKZG, evals_batch: torch.Tensor,
                                  evals_batch[:, n - tail_rows:], c)
         accs = curve.add(accs, tail)
     return curve.to_affine_ints(accs)
+
+
+def commit_coeff_many(params: ParamsKZG, coeffs_batch: torch.Tensor,
+                      c: int = 13) -> list:
+    """Commit B coefficient-form polynomials (B, m, 8), m ≤ n, over the
+    monomial basis [τ^i]G -> list of B affine points (``srs.py:251-271``,
+    chunked as ``_msm_chunked`` :133-145)."""
+    m = coeffs_batch.shape[1]
+    accs = None
+    for i in range(0, m, MSM_CHUNK):
+        part = msm.msm_many_mont(params.g1[i: min(i + MSM_CHUNK, m)],
+                                 coeffs_batch[:, i: i + MSM_CHUNK], c)
+        accs = part if accs is None else curve.add(accs, part)
+    return curve.to_affine_ints(accs)
+
+
+def commit_coeff(params: ParamsKZG, coeffs: torch.Tensor, c: int = 13):
+    """Commit one coefficient-form polynomial (m, 8) -> affine point."""
+    return commit_coeff_many(params, coeffs[None], c)[0]

@@ -1,7 +1,9 @@
-"""Fiat–Shamir transcript, prover side, v1 wire format.
+"""Fiat–Shamir transcript, v1 wire format: the prover's and the
+verifier's side.
 
 A copy of the v1 mode of ``zkodst_tpu/proof/transcript.py``
-``Blake2bWrite`` (:163-210): Blake2b-512 with personalization
+(``compress_g1``/``decompress_g1`` :51-79, ``Blake2bWrite`` :163-210,
+``Blake2bRead`` :213-267): Blake2b-512 with personalization
 ``b"Halo2-Transcript"``; domain prefixes 0 = challenge squeeze, 1 = point,
 2 = scalar; points absorbed and serialized as 32-byte compressed G1 (LE x,
 y parity in bit 255, identity = zeros), scalars as 32-byte LE. A challenge
@@ -13,7 +15,8 @@ from __future__ import annotations
 
 import hashlib
 
-from ..ops.pyfield import FR
+from ..ops import pycurve
+from ..ops.pyfield import FQ, FR
 
 PERSON = b"Halo2-Transcript"
 PREFIX_CHALLENGE = b"\x00"
@@ -33,12 +36,34 @@ def compress_g1(pt) -> bytes:
     return bytes(b)
 
 
-class Blake2bWrite:
-    """Prover-side transcript: absorbs proof elements, emits proof bytes."""
+def decompress_g1(data: bytes):
+    """Inverse of compress_g1; raises ValueError unless `data` encodes a
+    point of the curve (or the identity)."""
+    if len(data) != 32:
+        raise ValueError("a point takes 32 bytes")
+    if data == bytes(32):
+        return None
+    b = bytearray(data)
+    if b[31] & 0x40:
+        raise ValueError("bit 254 is set (compress_g1 never sets it)")
+    ysign = (b[31] >> 7) & 1
+    b[31] &= 0x3F
+    x = int.from_bytes(bytes(b), "little")
+    if x >= FQ.p:
+        raise ValueError("x out of range")
+    y = FQ.sqrt((x * x % FQ.p) * x % FQ.p + pycurve.B1)
+    if y is None:
+        raise ValueError("not on the curve")
+    if (y & 1) != ysign:
+        y = FQ.p - y
+    return (x, y)
+
+
+class _Transcript:
+    """The Blake2b state both sides absorb into and squeeze from."""
 
     def __init__(self):
         self._h = hashlib.blake2b(digest_size=64, person=PERSON)
-        self._proof = bytearray()
 
     def common_point(self, pt) -> None:
         self._h.update(PREFIX_POINT)
@@ -48,6 +73,19 @@ class Blake2bWrite:
         self._h.update(PREFIX_SCALAR)
         self._h.update((int(v) % FR.p).to_bytes(32, "little"))
 
+    def squeeze_challenge(self) -> int:
+        self._h.update(PREFIX_CHALLENGE)
+        wide = self._h.copy().digest()
+        return int.from_bytes(wide, "little") % FR.p
+
+
+class Blake2bWrite(_Transcript):
+    """Prover-side transcript: absorbs proof elements, emits proof bytes."""
+
+    def __init__(self):
+        super().__init__()
+        self._proof = bytearray()
+
     def write_point(self, pt) -> None:
         self.common_point(pt)
         self._proof += compress_g1(pt)
@@ -56,10 +94,37 @@ class Blake2bWrite:
         self.common_scalar(v)
         self._proof += (int(v) % FR.p).to_bytes(32, "little")
 
-    def squeeze_challenge(self) -> int:
-        self._h.update(PREFIX_CHALLENGE)
-        wide = self._h.copy().digest()
-        return int.from_bytes(wide, "little") % FR.p
-
     def finalize(self) -> bytes:
         return bytes(self._proof)
+
+
+class Blake2bRead(_Transcript):
+    """Verifier-side transcript: replays a proof byte stream. A malformed
+    or missing element raises ValueError."""
+
+    def __init__(self, proof: bytes):
+        super().__init__()
+        self._proof = proof
+        self._pos = 0
+
+    def _take(self, nbytes: int) -> bytes:
+        if self._pos + nbytes > len(self._proof):
+            raise ValueError("proof too short")
+        out = self._proof[self._pos: self._pos + nbytes]
+        self._pos += nbytes
+        return out
+
+    def read_point(self):
+        pt = decompress_g1(self._take(32))
+        self.common_point(pt)
+        return pt
+
+    def read_scalar(self) -> int:
+        v = int.from_bytes(self._take(32), "little")
+        if v >= FR.p:
+            raise ValueError("scalar out of range")
+        self.common_scalar(v)
+        return v
+
+    def done(self) -> bool:
+        return self._pos == len(self._proof)

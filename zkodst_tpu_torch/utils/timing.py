@@ -15,6 +15,7 @@ import torch
 
 SETUP = "setup"
 PROVE = "prove"
+VERIFY = "verify"
 
 
 @dataclass
