@@ -17,7 +17,9 @@ scalar. It profiles the warm phases, runs setup and prove once more
 under the profiler to read each kernel's device time on the path from the
 trace, then holds every kernel against its plain PyTorch version at each
 shape that run gave it, times both, and prints one JSON line of kernel
-records and, last,
+records (with each kernel's registers, stack frame and spills as ptxas
+reports them, and scale_reduce's dependent steps and time per step) and,
+last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line. It imports nothing of JAX or zkodst_tpu and writes nothing
 outside the kernel build directory.
@@ -47,10 +49,11 @@ IMAD_PER_SM_CLOCK = 64              # 32-bit multiply results / SM / clock
 POINT_BYTES = 96                    # a projective point: 24 32-bit words
 SPIN_CYCLES = 10_000_000            # ~5 ms of card time ahead of a timed call
 # 32-bit multiply results in one Montgomery product (8×8 a·b and 8×8 m·p
-# wide products, lo and hi halves counted apart, plus 8 m = t·inv) and in
-# one complete addition (12 products)
+# wide products, lo and hi halves counted apart, plus 8 m = t·inv), in one
+# complete addition (12 products) and in one complete doubling (8)
 MULMOD_OPS = 2 * 2 * 64 + 8
 EC_ADD_OPS = 12 * MULMOD_OPS
+DBL_OPS = 8 * MULMOD_OPS
 
 SOURCES = {
     "mulmod": "zkodst_tpu_torch/cuda/csrc/mulmod.cu",
@@ -156,6 +159,42 @@ def traced_kernel(key: str):
     return next((w for k, w in TRACE_NAMES.items() if k in key), None)
 
 
+def ptxas_table(reports):
+    """wrapper -> {registers, stack_frame_bytes, spill_bytes}, the largest
+    over the wrapper's instances (Fr and Fq), from the ptxas -v reports; a
+    device function compiled out of line is charged to no wrapper."""
+    table = {}
+    for rep in reports.values():
+        name = None
+        for line in rep.splitlines():
+            m = re.search(r"Function properties for (\w+)", line)
+            if m:
+                name = traced_kernel(m.group(1))
+                continue
+            if name is None:
+                continue
+            rec = table.setdefault(name, {"registers": 0,
+                                          "stack_frame_bytes": 0,
+                                          "spill_bytes": 0})
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                rec["stack_frame_bytes"] = max(rec["stack_frame_bytes"],
+                                               int(m.group(1)))
+                rec["spill_bytes"] = max(rec["spill_bytes"], int(m.group(2))
+                                         + int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                rec["registers"] = max(rec["registers"], int(m.group(1)))
+    return table
+
+
+def serial_steps(args) -> int:
+    """Dependent steps of one scale_reduce call: c doublings and one add for
+    each window below the top one, in series in every batch row."""
+    return (args[1] + 1) * (args[0].shape[2] - 1)
+
+
 def _copy(t):
     """A copy of `t` that keeps its broadcast (stride-0) dimensions
     broadcast, so a recorded call sees the operands the path gave it."""
@@ -233,10 +272,10 @@ def work(name, args):
             f[:, 0] = True                      # the tile's first lane
         adds = int((~f).sum())
         return (2 * POINT_BYTES + 1) * B * n, EC_ADD_OPS * adds
-    if name == "scale_reduce":
+    if name == "scale_reduce":         # c doublings and an add a window
         c = args[1]
-        adds = B * (c + 1) * (n - 1)
-        return POINT_BYTES * B * (n + 1), EC_ADD_OPS * adds
+        return (POINT_BYTES * B * (n + 1),
+                B * (n - 1) * (c * DBL_OPS + EC_ADD_OPS))
     raise KeyError(name)
 
 
@@ -292,6 +331,7 @@ def main() -> int:
                     + (f"<{mod.group(1)}>" if mod else ""))
             elif "registers" in line or "spill" in line:
                 log(f"ptxas {src}: {line.strip()}")
+    ptxas = ptxas_table(built.ptxas)
 
     # -- the main path, counted -----------------------------------------------
     kernels.reset_counts()
@@ -513,6 +553,11 @@ def main() -> int:
             f"plain; kernel {entry['ms']:.4f} ms, plain {plain_once:.1f} ms "
             f"(one cold call), bound {entry['bound_ms']:.4f} ms "
             f"({entry['bound_by']})")
+        if name == "scale_reduce":      # latency-bound: its own floor
+            entry["serial_steps"] = serial_steps(args)
+            entry["us_per_step"] = entry["ms"] * 1e3 / entry["serial_steps"]
+            log(f"scale_reduce {shape}: {entry['serial_steps']} dependent "
+                f"steps in series, {entry['us_per_step']:.3f} us each")
         records.setdefault(name, []).append((entry, args))
     phases["kernel checks"] = time.perf_counter() - t_check
     line = []
@@ -542,6 +587,7 @@ def main() -> int:
                      "replaces": REPLACES[name],
                      "launches": launches[name], **top,
                      "library_ms": None, **path,
+                     "ptxas": ptxas.get(name),
                      "other_shapes": [e for e, _ in shapes[1:]]})
     print(json.dumps({"card": card, "phases_s": phases,
                       "profile": profile}), flush=True)

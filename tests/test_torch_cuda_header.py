@@ -1,7 +1,10 @@
 """The CUDA kernels' shared arithmetic header (cuda/csrc/field.cuh), built
 for the host with g++, against the plain twins and Python ints. The header
 is __host__ __device__, so this checks the Montgomery multiply, add, sub
-and the complete EC addition that every kernel runs, without a card."""
+and the complete EC addition and doubling that every kernel runs, without
+a card (the host build takes the header's portable arithmetic; the card
+takes its PTX carry chains, held to the same twins by
+test_torch_kernels_cuda.py)."""
 
 import ctypes
 import os
@@ -50,6 +53,14 @@ void pt_add(const uint32_t* p, const uint32_t* q, uint32_t* o, long long n) {
     zk::store_pt(o + 24 * i, 1, 0, s);
   }
 }
+void pt_dbl(const uint32_t* p, uint32_t* o, long long n) {
+  for (long long i = 0; i < n; ++i) {
+    zk::Pt x, s;
+    zk::load_pt(p + 24 * i, 1, 0, x);
+    zk::ec_dbl(x, s);
+    zk::store_pt(o + 24 * i, 1, 0, s);
+  }
+}
 void identity(uint32_t* o) {
   zk::Pt p;
   zk::set_identity(p);
@@ -86,6 +97,7 @@ def lib(tmp_path_factory):
     lib.fe_op.argtypes = [ctypes.c_int, ctypes.c_int, P, P, P,
                           ctypes.c_longlong]
     lib.pt_add.argtypes = [P, P, P, ctypes.c_longlong]
+    lib.pt_dbl.argtypes = [P, P, ctypes.c_longlong]
     lib.identity.argtypes = [P]
     lib.bfly.argtypes = [ctypes.c_int, P, P, P, ctypes.c_longlong]
     lib.one.argtypes = [ctypes.c_int, P]
@@ -154,3 +166,30 @@ def test_butterfly_and_one(lib, F):
     one = np.zeros(8, np.uint32)
     lib.one(F.kernel_id, one.ctypes.data)
     np.testing.assert_array_equal(one, F.ONE)
+
+
+def test_ec_dbl(lib):
+    """ec_dbl equals its twin dbl_limbs limb for limb on projective points
+    (Z ≠ 1) and the identity, maps the identity to exactly (0 : 1 : 0), and
+    gives the same affine point as ec_add(P, P) and the oracle's P + P.
+    BN254's G1 has prime order, so no point of it has Y = 0."""
+    G, GEN = pycurve.G1, pycurve.G1_GEN
+    a = [G.mul(GEN, int(k)) for k in rng.integers(1, 1 << 40, 48)]
+    b = [G.mul(GEN, int(k)) for k in rng.integers(1, 1 << 40, 48)]
+    proj = curve.add(curve.from_affine_ints(a), curve.from_affine_ints(b))
+    P = torch.cat([proj, curve.from_affine_ints([None, GEN])])
+    pts = [G.add(x, y) for x, y in zip(a, b)] + [None, GEN]
+    n = P.shape[0]
+    pw = P.numpy().view(np.uint32)
+    got = _run(lambda x, o: lib.pt_dbl(x, o, n), pw, out_shape=(n, 3, 8))
+    twin = curve.dbl_limbs(P.to(torch.int64) & 0xFFFFFFFF)
+    np.testing.assert_array_equal(got, twin.to(torch.int32).numpy()
+                                  .view(np.uint32))
+    np.testing.assert_array_equal(got[-2], curve.identity().numpy()
+                                  .view(np.uint32))
+    added = _run(lambda x, y, o: lib.pt_add(x, y, o, n), pw, pw,
+                 out_shape=(n, 3, 8))
+    want = [G.add(x, x) for x in pts]
+    assert curve.to_affine_ints(torch.from_numpy(got.view(np.int32))) == want
+    assert curve.to_affine_ints(torch.from_numpy(added.view(np.int32))) \
+        == want

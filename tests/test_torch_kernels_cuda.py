@@ -58,6 +58,18 @@ def test_mulmod(dev, F):
     _same(mulmod.mulmod(F, a.to(dev), c.to(dev)), mulmod.mulmod_plain(F, a, c))
 
 
+@pytest.mark.parametrize("F", [FR, FQ], ids=["fr", "fq"])
+def test_mulmod_edge_values(dev, F):
+    """Every pair of 0, 1, p − 1 (and 2, p − 2, R mod p) through the PTX
+    carry chains of the product, the sum and the difference."""
+    edges = [0, 1, 2, F.p - 2, F.p - 1, F.r % F.p]
+    a = F.from_ints([x for x in edges for _ in edges])
+    b = F.from_ints([y for _ in edges for y in edges])
+    for op in ("mulmod", "addmod", "submod"):
+        fn, plain = getattr(mulmod, op), getattr(mulmod, op + "_plain")
+        _same(fn(F, a.to(dev), b.to(dev)), plain(F, a, b))
+
+
 def _elements(F, n, seed):
     r = np.random.default_rng(seed)
     xs = [int.from_bytes(r.bytes(40), "little") % F.p for _ in range(n)]
@@ -158,6 +170,34 @@ def test_scale_reduce(dev, pts):
     P, _, _ = pts
     ws = P[:, :, :6].contiguous()
     _same(ec.scale_reduce(ws.to(dev), 13), ec.scale_reduce_plain(ws, 13))
+
+
+@pytest.mark.parametrize("batch,nlive,c", [(14, 64, 4), (4, 20, 13)])
+def test_scale_reduce_path_shapes(dev, pts, batch, nlive, c):
+    """The MSM's two combine shapes on the flagship path, with identity
+    windows (P[:, :, ::97] are identities; window 0 of row 0 is one)."""
+    P, _, _ = pts
+    ws = P[0, :, :batch * nlive].reshape(24, batch, nlive) \
+        .transpose(0, 1).contiguous()
+    assert bool((ws[:, 16:] == 0).all(dim=1).any())
+    _same(ec.scale_reduce(ws.to(dev), c), ec.scale_reduce_plain(ws, c))
+
+
+def test_chain_scan_local_w2048(dev, pts):
+    """W = 2048 chains of S = 4 elements, as on the flagship path: flags at
+    some chain heads, none at the others (a run that began in the chain
+    before: the kernel restarts there all the same), and 500 chains whose
+    last two elements carry no flag."""
+    P, _, f = pts
+    n, W = 8192, 2048
+    perm = torch.from_numpy(np.random.default_rng(81).permutation(n) % 1024)
+    Pn = P[:, :, perm].contiguous()
+    fn = f[:, perm].clone()
+    fn[:, :W:7] = True                          # flags at chain heads
+    fn[:, 2 * W + 100:2 * W + 600] = False
+    fn[:, 3 * W + 100:3 * W + 600] = False
+    _same(ec.chain_scan_local(Pn.to(dev), fn.to(dev), W),
+          ec.chain_scan_local_plain(Pn, fn, W))
 
 
 def test_wrappers_reject_bad_input(dev):

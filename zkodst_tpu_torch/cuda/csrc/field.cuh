@@ -6,23 +6,36 @@
 // also be compiled by a host C++ compiler and checked against Python ints
 // without a card (tests/test_torch_cuda_header.py).
 //
-// The multiply is CIOS with 64-bit intermediates: (2^32-1)^2 + 2(2^32-1)
-// fits in 64 bits, and nvcc lowers each step to a 32×32→64 multiply-add.
-// p < 2^254 for both moduli, so every result before the final conditional
-// subtraction is < 2p < 2^255 and the top word never carries.
+// The multiply is CIOS, one row per word of b: t += a·b_i, then
+// t += m·p with m = t0·(−p^-1), then t moves down a word. On the card each
+// row is PTX carry chains over two accumulators, E (words 0..7) and O
+// (words 1..8), so that the low and high halves of every 32×32 product
+// fall in one aligned register pair and ptxas makes each pair one 64-bit
+// multiply-add with carry in and out (IMAD.WIDE.U32.X). One chain over
+// all words instead costs a multiply and a carry add for each half, and
+// the 64-bit C form below more still. E and O swap roles every row, which
+// makes the word shift an aligned move folded into the next row's first
+// chain. Each whole chain is one asm block: the carry flag does not
+// survive between asm statements. The host (g++, in the tests) compiles
+// the portable 64-bit form; both return the same canonical value. Sums,
+// differences and the final conditional subtraction are add.cc / sub.cc
+// chains on the card too: with the 64-bit C form there instead, the EC
+// kernels took 16–55% longer on an H100 and the multiply-bound chain and
+// NTT kernels 13–28% (PERF.md §6). p < 2^254 for both
+// moduli, so the running sum stays below 2^288 (nine words) and every
+// result before the final conditional subtraction is < 2p.
+//
+// Everything is inlined, so the complete addition and doubling keep their
+// points in registers: a call out of line would pass them through a stack
+// frame in local memory, which competes with L1 in the scan kernels.
 #pragma once
 
 #include <stdint.h>
 
 #if defined(__CUDACC__)
 #define ZK_HD __host__ __device__ __forceinline__
-// nvcc 12.9's front end (cicc) crashes when the complete addition is
-// inlined into the scan kernels; out of line it costs a 288-byte stack
-// frame per call and no spills.
-#define ZK_HD_OUTLINE __host__ __device__ __noinline__
 #else
 #define ZK_HD inline
-#define ZK_HD_OUTLINE inline
 #endif
 
 namespace zk {
@@ -59,19 +72,153 @@ struct Fq {
   }
 };
 
+#if defined(__CUDA_ARCH__)
+// The rows of the card's multiply (see the top of the file): E holds the
+// running sum's words 0..7 and O its words 1..8.
+
+// E += x_even·y: x0, x2, x4, x6 at words 0, 2, 4, 6; the carry out of
+// word 7 goes to o8, the word at position 8.
+__device__ __forceinline__ void mad_even(uint32_t E[8], const uint32_t x[8],
+                                         uint32_t y, uint32_t& o8) {
+  asm volatile(
+      "mad.lo.cc.u32 %0, %9, %13, %0;\n\t"
+      "madc.hi.cc.u32 %1, %9, %13, %1;\n\t"
+      "madc.lo.cc.u32 %2, %10, %13, %2;\n\t"
+      "madc.hi.cc.u32 %3, %10, %13, %3;\n\t"
+      "madc.lo.cc.u32 %4, %11, %13, %4;\n\t"
+      "madc.hi.cc.u32 %5, %11, %13, %5;\n\t"
+      "madc.lo.cc.u32 %6, %12, %13, %6;\n\t"
+      "madc.hi.cc.u32 %7, %12, %13, %7;\n\t"
+      "addc.u32 %8, %8, 0;"
+      : "+r"(E[0]), "+r"(E[1]), "+r"(E[2]), "+r"(E[3]), "+r"(E[4]),
+        "+r"(E[5]), "+r"(E[6]), "+r"(E[7]), "+r"(o8)
+      : "r"(x[0]), "r"(x[2]), "r"(x[4]), "r"(x[6]), "r"(y));
+}
+
+// O += x_odd·y: x1, x3, x5, x7 at words 1, 3, 5, 7 (O's pairs).
+__device__ __forceinline__ void mad_odd(uint32_t O[8], const uint32_t x[8],
+                                        uint32_t y) {
+  asm volatile(
+      "mad.lo.cc.u32 %0, %8, %12, %0;\n\t"
+      "madc.hi.cc.u32 %1, %8, %12, %1;\n\t"
+      "madc.lo.cc.u32 %2, %9, %12, %2;\n\t"
+      "madc.hi.cc.u32 %3, %9, %12, %3;\n\t"
+      "madc.lo.cc.u32 %4, %10, %12, %4;\n\t"
+      "madc.hi.cc.u32 %5, %10, %12, %5;\n\t"
+      "madc.lo.cc.u32 %6, %11, %12, %6;\n\t"
+      "madc.hi.u32 %7, %11, %12, %7;"
+      : "+r"(O[0]), "+r"(O[1]), "+r"(O[2]), "+r"(O[3]), "+r"(O[4]),
+        "+r"(O[5]), "+r"(O[6]), "+r"(O[7])
+      : "r"(x[1]), "r"(x[3]), "r"(x[5]), "r"(x[7]), "r"(y));
+}
+
+// The start of a row, after the last one's reduction cleared word 0 and
+// the sum moved down a word: E (the last row's O) takes word 1 of P (the
+// last row's E), and P becomes the new O, its words 2..7 moved down two
+// places (an aligned move) and added to x_odd·y, in one carry chain.
+__device__ __forceinline__ void shift_mad_odd(uint32_t E[8], uint32_t P[8],
+                                              const uint32_t x[8],
+                                              uint32_t y) {
+  uint32_t o[8];
+  asm volatile(
+      "add.cc.u32 %0, %0, %9;\n\t"
+      "madc.lo.cc.u32 %1, %16, %20, %10;\n\t"
+      "madc.hi.cc.u32 %2, %16, %20, %11;\n\t"
+      "madc.lo.cc.u32 %3, %17, %20, %12;\n\t"
+      "madc.hi.cc.u32 %4, %17, %20, %13;\n\t"
+      "madc.lo.cc.u32 %5, %18, %20, %14;\n\t"
+      "madc.hi.cc.u32 %6, %18, %20, %15;\n\t"
+      "madc.lo.cc.u32 %7, %19, %20, %21;\n\t"
+      "madc.hi.u32 %8, %19, %20, %21;"
+      : "+r"(E[0]), "=r"(o[0]), "=r"(o[1]), "=r"(o[2]), "=r"(o[3]),
+        "=r"(o[4]), "=r"(o[5]), "=r"(o[6]), "=r"(o[7])
+      : "r"(P[1]), "r"(P[2]), "r"(P[3]), "r"(P[4]), "r"(P[5]), "r"(P[6]),
+        "r"(P[7]), "r"(x[1]), "r"(x[3]), "r"(x[5]), "r"(x[7]), "r"(y),
+        "r"(0u));
+#pragma unroll
+  for (int j = 0; j < 8; ++j) P[j] = o[j];
+}
+
+// Reduction step of a row: m = E0·(−p^-1), then E and O take m·p, which
+// clears word 0.
+template <class M>
+__device__ __forceinline__ void redc(uint32_t E[8], uint32_t O[8],
+                                     const uint32_t p[8]) {
+  const uint32_t m = E[0] * M::INV;
+  mad_odd(O, p, m);
+  mad_even(E, p, m, O[7]);
+}
+
+// Row i ≥ 1 of the product: E, P as above; P holds the new O after it.
+template <class M>
+__device__ __forceinline__ void mul_row(uint32_t E[8], uint32_t P[8],
+                                        const uint32_t a[8], uint32_t b,
+                                        const uint32_t p[8]) {
+  shift_mad_odd(E, P, a, b);
+  mad_even(E, a, b, P[7]);
+  redc<M>(E, P, p);
+}
+#endif
+
+#if defined(__CUDA_ARCH__)
+// d = a − b over 8 words; returns 0xFFFFFFFF if it borrowed, else 0.
+__device__ __forceinline__ uint32_t sub8(const uint32_t a[8],
+                                         const uint32_t b[8], uint32_t d[8]) {
+  uint32_t borrow = 0;              // x − x − borrow-in = the borrow mask
+  asm volatile(
+      "sub.cc.u32 %0, %9, %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32 %8, %8, %8;"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]),
+        "=r"(d[5]), "=r"(d[6]), "=r"(d[7]), "+r"(borrow)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
+        "r"(a[6]), "r"(a[7]), "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]),
+        "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
+  return borrow;
+}
+
+// s = a + b over 8 words, the carry out of the top word dropped.
+__device__ __forceinline__ void add8(const uint32_t a[8], const uint32_t b[8],
+                                     uint32_t s[8]) {
+  asm volatile(
+      "add.cc.u32 %0, %8, %16;\n\t"
+      "addc.cc.u32 %1, %9, %17;\n\t"
+      "addc.cc.u32 %2, %10, %18;\n\t"
+      "addc.cc.u32 %3, %11, %19;\n\t"
+      "addc.cc.u32 %4, %12, %20;\n\t"
+      "addc.cc.u32 %5, %13, %21;\n\t"
+      "addc.cc.u32 %6, %14, %22;\n\t"
+      "addc.u32 %7, %15, %23;"
+      : "=r"(s[0]), "=r"(s[1]), "=r"(s[2]), "=r"(s[3]), "=r"(s[4]),
+        "=r"(s[5]), "=r"(s[6]), "=r"(s[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
+        "r"(a[6]), "r"(a[7]), "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]),
+        "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
+}
+#endif
+
 // r = t - p if t >= p else t (t < 2p).
 template <class M>
 ZK_HD void reduce_once(const uint32_t t[8], uint32_t r[8]) {
   uint32_t p[8];
   M::load(p);
   uint32_t d[8];
+#if defined(__CUDA_ARCH__)
+  const uint32_t borrow = sub8(t, p, d);
+#else
   uint64_t borrow = 0;
-#pragma unroll
   for (int i = 0; i < 8; ++i) {
     uint64_t s = (uint64_t)t[i] - p[i] - borrow;
     d[i] = (uint32_t)s;
     borrow = (s >> 32) & 1u;
   }
+#endif
 #pragma unroll
   for (int i = 0; i < 8; ++i) r[i] = borrow ? t[i] : d[i];
 }
@@ -81,13 +228,44 @@ template <class M>
 ZK_HD void mont_mul(const uint32_t a[8], const uint32_t b[8], uint32_t r[8]) {
   uint32_t p[8];
   M::load(p);
+#if defined(__CUDA_ARCH__)
+  uint32_t x[8], y[8];              // row 0: E = x, O = y
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+    uint64_t w = (uint64_t)a[j] * b[0];
+    x[j] = (uint32_t)w;
+    x[j + 1] = (uint32_t)(w >> 32);
+    w = (uint64_t)a[j + 1] * b[0];
+    y[j] = (uint32_t)w;
+    y[j + 1] = (uint32_t)(w >> 32);
+  }
+  redc<M>(x, y, p);
+#pragma unroll
+  for (int i = 1; i < 8; i += 2) {  // the arrays swap roles every row
+    mul_row<M>(y, x, a, b[i], p);
+    if (i + 1 < 8) mul_row<M>(x, y, a, b[i + 1], p);
+  }
+  // E = y, O = x, word 0 clear: t = (E + O·2^32) / 2^32
+  uint32_t t[8];
+  asm volatile(
+      "add.cc.u32 %0, %8, %17;\n\t"
+      "addc.cc.u32 %1, %9, %18;\n\t"
+      "addc.cc.u32 %2, %10, %19;\n\t"
+      "addc.cc.u32 %3, %11, %20;\n\t"
+      "addc.cc.u32 %4, %12, %21;\n\t"
+      "addc.cc.u32 %5, %13, %22;\n\t"
+      "addc.cc.u32 %6, %14, %23;\n\t"
+      "addc.u32 %7, %15, %16;"
+      : "=r"(t[0]), "=r"(t[1]), "=r"(t[2]), "=r"(t[3]), "=r"(t[4]),
+        "=r"(t[5]), "=r"(t[6]), "=r"(t[7])
+      : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(x[4]), "r"(x[5]),
+        "r"(x[6]), "r"(x[7]), "r"(0u), "r"(y[1]), "r"(y[2]), "r"(y[3]),
+        "r"(y[4]), "r"(y[5]), "r"(y[6]), "r"(y[7]));
+#else
   uint32_t t[10];
-#pragma unroll
   for (int i = 0; i < 10; ++i) t[i] = 0;
-#pragma unroll
   for (int i = 0; i < 8; ++i) {
     uint64_t c = 0;
-#pragma unroll
     for (int j = 0; j < 8; ++j) {
       uint64_t s = (uint64_t)a[j] * b[i] + t[j] + c;
       t[j] = (uint32_t)s;
@@ -99,7 +277,6 @@ ZK_HD void mont_mul(const uint32_t a[8], const uint32_t b[8], uint32_t r[8]) {
     uint32_t m = t[0] * M::INV;
     s = (uint64_t)m * p[0] + t[0];
     c = s >> 32;
-#pragma unroll
     for (int j = 1; j < 8; ++j) {
       s = (uint64_t)m * p[j] + t[j] + c;
       t[j - 1] = (uint32_t)s;
@@ -109,6 +286,7 @@ ZK_HD void mont_mul(const uint32_t a[8], const uint32_t b[8], uint32_t r[8]) {
     t[7] = (uint32_t)s;
     t[8] = t[9] + (uint32_t)(s >> 32);
   }
+#endif
   reduce_once<M>(t, r);
 }
 
@@ -116,13 +294,16 @@ ZK_HD void mont_mul(const uint32_t a[8], const uint32_t b[8], uint32_t r[8]) {
 template <class M>
 ZK_HD void add_mod(const uint32_t a[8], const uint32_t b[8], uint32_t r[8]) {
   uint32_t s[8];
+#if defined(__CUDA_ARCH__)
+  add8(a, b, s);
+#else
   uint64_t c = 0;
-#pragma unroll
   for (int i = 0; i < 8; ++i) {
     uint64_t v = (uint64_t)a[i] + b[i] + c;
     s[i] = (uint32_t)v;
     c = v >> 32;
   }
+#endif
   reduce_once<M>(s, r);
 }
 
@@ -132,8 +313,13 @@ ZK_HD void sub_mod(const uint32_t a[8], const uint32_t b[8], uint32_t r[8]) {
   uint32_t p[8];
   M::load(p);
   uint32_t d[8];
-  uint64_t borrow = 0;
+#if defined(__CUDA_ARCH__)
+  const uint32_t mask = sub8(a, b, d);
 #pragma unroll
+  for (int i = 0; i < 8; ++i) p[i] &= mask;
+  add8(d, p, r);
+#else
+  uint64_t borrow = 0;
   for (int i = 0; i < 8; ++i) {
     uint64_t v = (uint64_t)a[i] - b[i] - borrow;
     d[i] = (uint32_t)v;
@@ -141,12 +327,12 @@ ZK_HD void sub_mod(const uint32_t a[8], const uint32_t b[8], uint32_t r[8]) {
   }
   uint64_t c = 0;
   uint32_t mask = borrow ? 0xFFFFFFFFu : 0u;
-#pragma unroll
   for (int i = 0; i < 8; ++i) {
     uint64_t v = (uint64_t)d[i] + (p[i] & mask) + c;
     r[i] = (uint32_t)v;
     c = v >> 32;
   }
+#endif
 }
 
 // Radix-2 DIT butterfly in place: (u, v) <- (u + w·v, u − w·v).
@@ -182,30 +368,45 @@ ZK_HD void mul9(const uint32_t a[8], uint32_t r[8]) {
   add_mod<Fq>(a8, a, r);
 }
 
+// The complete addition and doubling are written once, over a `Layer`
+// that computes one layer of independent products r[k] = a[k]·b[k] in Fq.
+// SerialLayer runs them one after another in one thread (ptxas overlaps
+// their carry chains); ec.cu's warp layer gives each product its own lane.
+struct SerialLayer {
+  template <int N>
+  ZK_HD void operator()(const uint32_t* const (&a)[N],
+                        const uint32_t* const (&b)[N],
+                        uint32_t* const (&r)[N]) const {
+#pragma unroll
+    for (int k = 0; k < N; ++k) mont_mul<Fq>(a[k], b[k], r[k]);
+  }
+};
+
 // Complete addition, RCB16 Alg. 7 for a = 0 with b3 = 3·3 = 9, in the
-// operation sequence of zkodst_tpu/pallas/ec.py:_ec_add_vecs. Valid for
-// every input pair, including identity and P + P; symmetric in (p, q).
-ZK_HD_OUTLINE void ec_add(const Pt& p, const Pt& q, Pt& o) {
-  uint32_t t0[8], t1[8], t2[8], u[8], v[8], w[8];
-  uint32_t t3[8], t4[8], w3[8], s[8];
-  mont_mul<Fq>(p.x, q.x, t0);
-  mont_mul<Fq>(p.y, q.y, t1);
-  mont_mul<Fq>(p.z, q.z, t2);
-  add_mod<Fq>(p.x, p.y, u);
-  add_mod<Fq>(q.x, q.y, v);
-  mont_mul<Fq>(u, v, w);            // u1
+// operation sequence of zkodst_tpu/pallas/ec.py:_ec_add_vecs: 12 products
+// in two layers of 6. Valid for every input pair, including identity and
+// P + P; symmetric in (p, q). o may alias p or q.
+template <class Layer>
+ZK_HD void ec_add_by(const Layer& mul, const Pt& p, const Pt& q, Pt& o) {
+  uint32_t sp[3][8], sq[3][8];
+  add_mod<Fq>(p.x, p.y, sp[0]);
+  add_mod<Fq>(p.y, p.z, sp[1]);
+  add_mod<Fq>(p.x, p.z, sp[2]);
+  add_mod<Fq>(q.x, q.y, sq[0]);
+  add_mod<Fq>(q.y, q.z, sq[1]);
+  add_mod<Fq>(q.x, q.z, sq[2]);
+  uint32_t t0[8], t1[8], t2[8], u1[8], u2[8], u3[8];
+  const uint32_t* const a1[6] = {p.x, p.y, p.z, sp[0], sp[1], sp[2]};
+  const uint32_t* const b1[6] = {q.x, q.y, q.z, sq[0], sq[1], sq[2]};
+  uint32_t* const r1[6] = {t0, t1, t2, u1, u2, u3};
+  mul(a1, b1, r1);
+  uint32_t s[8], t3[8], t4[8], w3[8];
   add_mod<Fq>(t0, t1, s);
-  sub_mod<Fq>(w, s, t3);            // x1y2 + x2y1
-  add_mod<Fq>(p.y, p.z, u);
-  add_mod<Fq>(q.y, q.z, v);
-  mont_mul<Fq>(u, v, w);            // u2
+  sub_mod<Fq>(u1, s, t3);           // x1y2 + x2y1
   add_mod<Fq>(t1, t2, s);
-  sub_mod<Fq>(w, s, t4);            // y1z2 + y2z1
-  add_mod<Fq>(p.x, p.z, u);
-  add_mod<Fq>(q.x, q.z, v);
-  mont_mul<Fq>(u, v, w);            // u3
+  sub_mod<Fq>(u2, s, t4);           // y1z2 + y2z1
   add_mod<Fq>(t0, t2, s);
-  sub_mod<Fq>(w, s, w3);            // x1z2 + x2z1
+  sub_mod<Fq>(u3, s, w3);           // x1z2 + x2z1
   uint32_t t0_3[8], t2_9[8], z3p[8], t1m[8], y3p[8];
   add_mod<Fq>(t0, t0, s);
   add_mod<Fq>(s, t0, t0_3);         // 3·x1x2
@@ -213,17 +414,57 @@ ZK_HD_OUTLINE void ec_add(const Pt& p, const Pt& q, Pt& o) {
   add_mod<Fq>(t1, t2_9, z3p);
   sub_mod<Fq>(t1, t2_9, t1m);
   mul9(w3, y3p);                    // b3·(x1z2 + x2z1)
-  uint32_t a[8], b[8];
-  mont_mul<Fq>(t3, t1m, a);
-  mont_mul<Fq>(t4, y3p, b);
-  sub_mod<Fq>(a, b, o.x);
-  mont_mul<Fq>(y3p, t0_3, a);
-  mont_mul<Fq>(t1m, z3p, b);
-  add_mod<Fq>(a, b, o.y);
-  mont_mul<Fq>(z3p, t4, a);
-  mont_mul<Fq>(t0_3, t3, b);
-  add_mod<Fq>(a, b, o.z);
+  uint32_t m[6][8];
+  const uint32_t* const a2[6] = {t3, t4, y3p, t1m, z3p, t0_3};
+  const uint32_t* const b2[6] = {t1m, y3p, t0_3, z3p, t4, t3};
+  uint32_t* const r2[6] = {m[0], m[1], m[2], m[3], m[4], m[5]};
+  mul(a2, b2, r2);
+  sub_mod<Fq>(m[0], m[1], o.x);
+  add_mod<Fq>(m[2], m[3], o.y);
+  add_mod<Fq>(m[4], m[5], o.z);
 }
+
+// Complete doubling, RCB16 Alg. 9 for a = 0 with b3 = 9, in the operation
+// sequence of zkodst_tpu/ops/curve.py:_double_impl: 6 multiplies and 2
+// squarings in three layers of independent products (4, 2, 2), where
+// ec_add(p, p) takes 12 in two layers of 6. Valid for every input; the
+// identity (0 : 1 : 0) maps to itself. o may alias p.
+template <class Layer>
+ZK_HD void ec_dbl_by(const Layer& mul, const Pt& p, Pt& o) {
+  uint32_t t0[8], t1[8], xy[8], t2[8];
+  const uint32_t* const a1[4] = {p.y, p.y, p.x, p.z};
+  const uint32_t* const b1[4] = {p.y, p.z, p.y, p.z};
+  uint32_t* const r1[4] = {t0, t1, xy, t2};
+  mul(a1, b1, r1);                  // y², yz, xy, z²
+  uint32_t u[8], v[8], z3[8], b3z2[8];
+  add_mod<Fq>(t0, t0, u);
+  add_mod<Fq>(u, u, v);
+  add_mod<Fq>(v, v, z3);            // 8·y²
+  mul9(t2, b3z2);                   // b3·z²
+  uint32_t x3[8];
+  const uint32_t* const a2[2] = {b3z2, t1};
+  const uint32_t* const b2[2] = {z3, z3};
+  uint32_t* const r2[2] = {x3, o.z};  // p is not read after the first layer
+  mul(a2, b2, r2);
+  uint32_t y3[8], w[8];
+  add_mod<Fq>(t0, b3z2, y3);
+  add_mod<Fq>(b3z2, b3z2, u);
+  add_mod<Fq>(u, b3z2, v);          // 3·b3·z²
+  sub_mod<Fq>(t0, v, w);
+  uint32_t ya[8], xa[8];
+  const uint32_t* const a3[2] = {w, w};
+  const uint32_t* const b3[2] = {y3, xy};
+  uint32_t* const r3[2] = {ya, xa};
+  mul(a3, b3, r3);
+  add_mod<Fq>(ya, x3, o.y);
+  add_mod<Fq>(xa, xa, o.x);
+}
+
+ZK_HD void ec_add(const Pt& p, const Pt& q, Pt& o) {
+  ec_add_by(SerialLayer(), p, q, o);
+}
+
+ZK_HD void ec_dbl(const Pt& p, Pt& o) { ec_dbl_by(SerialLayer(), p, o); }
 
 // Packed point tensors are (batch, 24, n) 32-bit words: row c·8 + i holds
 // limb i of coordinate c, so neighbouring threads read neighbouring words.

@@ -3,7 +3,7 @@
 
 Packed points are ``(batch, 24, n)`` int32 (see :mod:`..ops.curve`), flags
 ``(batch, n)`` bool. The twins repeat the kernels' association of
-additions, so kernel and twin agree limb for limb.
+additions and doublings, so kernel and twin agree limb for limb.
 
 =====================  ===============================================
 wrapper                replaces (``zkodst_tpu/pallas/ec.py``)
@@ -19,14 +19,15 @@ Two outputs of the TPU kernels have no consumer on the MSM path and are
 not produced here: the saturated flag rows of ``_seg_step_kernel`` and
 ``_seg_scan_tile_kernel`` (the MSM derives its own segment flags).
 ``scale_reduce`` takes the ``nlive`` window sums directly instead of a
-128-lane block padded with identities.
+128-lane block padded with identities, and combines them by Horner with
+the complete doubling (``dbl_limbs``), the JAX msm's own association.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.curve import add_limbs, lanes64
+from ..ops.curve import add_limbs, dbl_limbs, lanes64
 from ..ops.field import to_i32
 from .build import call
 
@@ -189,7 +190,7 @@ def scale_reduce_plain(ws, c: int):
     acc = pts[:, -1]
     for w in range(pts.shape[1] - 2, -1, -1):
         for _ in range(c):
-            acc = add_limbs(acc, acc)
+            acc = dbl_limbs(acc)
         acc = add_limbs(acc, pts[:, w])
     return _packed(acc[:, None])[:, :, 0]
 

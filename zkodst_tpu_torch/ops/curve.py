@@ -4,7 +4,8 @@ Counterpart of ``zkodst_tpu/ops/curve.py`` (the BN254 instance). A point is
 a ``(..., 3, 8)`` int32 tensor of Fq Montgomery limbs (X : Y : Z); the
 identity is (0 : 1 : 0). Addition is the complete RCB16 Alg. 7 formula
 (a = 0, b3 = 9) in the operation order of ``zkodst_tpu/pallas/ec.py``
-``_ec_add_vecs``, so identity and doubling need no branches.
+``_ec_add_vecs``, so identity and doubling need no branches; doubling is
+RCB16 Alg. 9 in the order of ``_double_impl`` (:func:`dbl_limbs`).
 
 Packed form: the kernels take ``(batch, 24, n)`` tensors (row c·8 + i =
 limb i of coordinate c), so that lanes are the fast axis; :func:`pack` and
@@ -92,6 +93,25 @@ def add_limbs(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     x3 = sub(m[0], m[1])
     y3, z3 = add(torch.stack([m[2], m[4]]), torch.stack([m[3], m[5]]))
     return torch.stack([x3, y3, z3], dim=-2)
+
+
+def dbl_limbs(p: torch.Tensor) -> torch.Tensor:
+    """Complete doubling on int64 limb values, (..., 3, 8); the plain twin
+    of zk::ec_dbl in cuda/csrc/field.cuh, RCB16 Alg. 9 (a = 0, b3 = 9) in
+    the operation sequence of ``zkodst_tpu/ops/curve.py`` ``_double_impl``:
+    three layers of independent products (4, 2, 2), each one stacked call."""
+    mul, add, sub = FQ.mont_mul64, FQ.add64, FQ.sub64
+    x, y, z = p[..., 0, :], p[..., 1, :], p[..., 2, :]
+    t0, t1, xy, t2 = mul(torch.stack([y, y, x, z]), torch.stack([y, z, y, z]))
+    z3 = add(t0, t0)
+    z3 = add(z3, z3)
+    z3 = add(z3, z3)                                # 8·y²
+    b3z2 = _mul9(t2)                                # b3·z²
+    x3, z3 = mul(torch.stack([b3z2, t1]), torch.stack([z3, z3]))
+    y3 = add(t0, b3z2)
+    w = sub(t0, add(add(b3z2, b3z2), b3z2))         # y² − 3·b3·z²
+    ya, xa = mul(torch.stack([w, w]), torch.stack([y3, xy]))
+    return torch.stack([add(xa, xa), add(ya, x3), z3], dim=-2)
 
 
 def lanes64(packed: torch.Tensor) -> torch.Tensor:
