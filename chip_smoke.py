@@ -18,11 +18,14 @@ under the profiler to read each kernel's device time on the path from the
 trace, then holds every kernel against its plain PyTorch version at each
 shape that run gave it, times both, and prints one JSON line of kernel
 records (with each kernel's registers, stack frame and spills as ptxas
-reports them, and scale_reduce's dependent steps and time per step) and,
-last,
-``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
-last line. It imports nothing of JAX or zkodst_tpu and writes nothing
-outside the kernel build directory.
+reports them, and scale_reduce's dependent steps and time per step), the
+device time of one ``FR.inv_batch`` of 73·2^17 elements (kernels 4, 5 and 1
+and the copies around them) and the operands the binop wrappers copied
+whole on the main path, and, last, ``{"ok": true, "device": {...}}``.
+The ``inv_batch`` runs in a process of its own (``--inv-batch`` does only
+that and prints its JSON). Any failure exits non-zero before the last
+line. It imports nothing of JAX or
+zkodst_tpu and writes nothing outside the kernel build directories.
 """
 
 from __future__ import annotations
@@ -160,9 +163,10 @@ def traced_kernel(key: str):
 
 
 def ptxas_table(reports):
-    """wrapper -> {registers, stack_frame_bytes, spill_bytes}, the largest
-    over the wrapper's instances (Fr and Fq), from the ptxas -v reports; a
-    device function compiled out of line is charged to no wrapper."""
+    """wrapper -> {registers, stack_frame_bytes, spill_bytes, smem_bytes},
+    the largest over the wrapper's instances (Fr and Fq), from the ptxas -v
+    reports; a device function compiled out of line is charged to no
+    wrapper."""
     table = {}
     for rep in reports.values():
         name = None
@@ -175,7 +179,7 @@ def ptxas_table(reports):
                 continue
             rec = table.setdefault(name, {"registers": 0,
                                           "stack_frame_bytes": 0,
-                                          "spill_bytes": 0})
+                                          "spill_bytes": 0, "smem_bytes": 0})
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", line)
             if m:
@@ -186,6 +190,9 @@ def ptxas_table(reports):
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 rec["registers"] = max(rec["registers"], int(m.group(1)))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                rec["smem_bytes"] = max(rec["smem_bytes"], int(m.group(1)))
     return table
 
 
@@ -279,9 +286,79 @@ def work(name, args):
     raise KeyError(name)
 
 
-def main() -> int:
+INV_BATCH_N = 73 << 17     # SHPLONK's inversion: 73 claims × 2^17 points
+
+
+def inv_batch_trace(F) -> dict:
+    """Device time of one warm ``F.inv_batch`` of INV_BATCH_N random
+    nonzero elements, from a profiler trace: every kernel it launches
+    (the prefix and suffix products' kernels 4, 5 and 1, the copies and
+    flips around them), by wrapper, and their sum."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    x = torch.randint(1, 1 << 32, (INV_BATCH_N, 8), device="cuda",
+                      dtype=torch.int64, generator=g)
+    x[:, 7] %= F.p >> 224                       # canonical: below p
+    x = (x - ((x >= 1 << 31).to(torch.int64) << 32)).to(torch.int32)
+    F.inv_batch(x)
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        F.inv_batch(x)
+        torch.cuda.synchronize()
+    by, launches = {}, 0
+    for ev in prof.key_averages():
+        dt = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if ev.device_type == torch.autograd.DeviceType.CUDA and dt > 0:
+            name = traced_kernel(ev.key) or "other (copies, flips, fills)"
+            by[name] = by.get(name, 0.0) + dt / 1e3
+            launches += ev.count
+    return {"elements": INV_BATCH_N, "device_ms": sum(by.values()),
+            "launches": launches, "by_kernel": by}
+
+
+def inv_batch_only() -> int:
+    """``--inv-batch``: the inv_batch trace alone."""
     import torch
 
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from zkodst_tpu_torch.kernels import build
+    from zkodst_tpu_torch.ops.field import FR as DFR
+
+    build.build()
+    print(json.dumps({"inv_batch": inv_batch_trace(DFR)}), flush=True)
+    return 0
+
+
+def inv_batch_apart():
+    """Run ``--inv-batch`` in a process of its own and return its record,
+    or None. A process of its own: on an H100 a profiler session late in
+    this script's process recorded none of the kernels launched before a
+    host sync."""
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--inv-batch"], capture_output=True, text=True,
+                         timeout=600)
+    for line in out.stdout.splitlines():
+        if line.startswith('{"inv_batch"'):
+            return json.loads(line)["inv_batch"]
+    log(f"inv_batch failed (exit {out.returncode}): "
+        f"{out.stderr.strip()[-400:]}")
+    return None
+
+
+def main(argv) -> int:
+    import torch
+
+    if argv:
+        print("usage: chip_smoke.py [--inv-batch]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -344,10 +421,12 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.counts()
+    copies = kernels.copies()
     for ph in pr.metrics.phases:
         phases[ph.label] = ph.seconds
         log(f"phase {ph.label}: {ph.seconds:.3f} s")
     log(f"main path wall: {wall:.3f} s; launches: {launches}")
+    log(f"binop operands copied whole on the main path: {copies}")
     t1 = time.perf_counter()
     pr.prove(*inputs, seed=BLIND_SEED)
     torch.cuda.synchronize()
@@ -416,6 +495,9 @@ def main() -> int:
         failures.append(f"witness digests {sorted(digests)[:2]} != EIP-152")
     else:
         log(f"witness: h' of all {N_INST} instances = the EIP-152 digest")
+    if copies["broadcast"]:
+        failures.append(f"{copies['broadcast']} broadcast binop operands "
+                        "copied whole on the main path")
     idle = [k for k, c in launches.items() if c == 0]
     if idle:
         failures.append(f"kernels not launched on the main path: {idle}")
@@ -589,9 +671,18 @@ def main() -> int:
                      "library_ms": None, **path,
                      "ptxas": ptxas.get(name),
                      "other_shapes": [e for e, _ in shapes[1:]]})
+    # the prefix product as a whole: kernels 4, 5 and 1 and the copies
+    inv = inv_batch_apart()
+    if inv is None:
+        failures.append("inv_batch: the trace of one FR.inv_batch failed")
+    else:
+        log(f"inv_batch of {inv['elements']} elements: "
+            f"{inv['device_ms']:.4f} ms of device time in "
+            f"{inv['launches']} launches {inv['by_kernel']}")
     print(json.dumps({"card": card, "phases_s": phases,
                       "profile": profile}), flush=True)
-    print(json.dumps({"kernels": line}), flush=True)
+    print(json.dumps({"kernels": line, "inv_batch": inv,
+                      "operand_copies": copies}), flush=True)
     if failures:
         for f in failures:
             print(f"chip_smoke: FAILED: {f}", file=sys.stderr)
@@ -604,4 +695,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:] == ["--inv-batch"]:
+        sys.exit(inv_batch_only())
+    sys.exit(main(sys.argv[1:]))

@@ -108,17 +108,62 @@ def test_chain_scan_local(data, W):
     assert _affine(_from_jax(jv)) == got
 
 
-@pytest.mark.parametrize("n", [8, 256, 512])
+def _chain_aggregate_row(a, n):
+    """A row of n lanes laid out as the MSM's chain aggregates: points
+    drawn from `a`, sparse starts, a long stretch with none, and starts at
+    multiples of 8, 128, 256 and 512 lanes (thread, warp and block
+    boundaries of the kernel's layouts)."""
+    r = np.random.default_rng(43)
+    pts = [a[i] for i in r.integers(0, len(a), n)]
+    flags = r.integers(0, 9, n) == 0
+    flags[300:900] = False
+    flags[512::512] = True
+    flags[1280] = flags[1792] = flags[1152] = True
+    flags[1544:1600:8] = True
+    return pts, flags
+
+
+@pytest.mark.parametrize("n", [8, 256, 512, 2048])
 def test_seg_scan_tiles(data, n):
     a, _, flags = data
-    a, flags = a[:n], flags[:n]
+    if n > N:
+        a, flags = _chain_aggregate_row(a, n)
+    else:
+        a, flags = a[:n], flags[:n]
     got = _affine(ec.seg_scan_tiles(_packed(a), torch.from_numpy(flags)[None]))
     starts = [True] + list(flags[1:])
     assert got == _scan_oracle(a, starts)
-    if n == N:
+    if n >= N:
         jv = jmsm._seg_scan_packed_flat(_jax_packed(_packed(a)),
                                         jnp.asarray(flags))
         assert _affine(_from_jax(jv)) == got
+
+
+def test_seg_scan_tiles_path_run(data, monkeypatch):
+    """The path's largest call, (80, 24, 2048), scans runs of 16 lanes a
+    thread (a row of 8 warps, padded nowhere but in the association); one
+    such row, with the call's thread budget cut so that a single row takes
+    the same run, against the oracle and JAX."""
+    assert ec._scan_run(80, 2048) == 16
+    monkeypatch.setattr(ec, "SCAN_CALL_THREADS", 64)
+    assert ec._scan_run(1, 2048) == 16
+    a, flags = _chain_aggregate_row(data[0], 2048)
+    got = _affine(ec.seg_scan_tiles(_packed(a), torch.from_numpy(flags)[None]))
+    assert got == _scan_oracle(a, [True] + list(flags[1:]))
+    jv = jmsm._seg_scan_packed_flat(_jax_packed(_packed(a)), jnp.asarray(flags))
+    assert _affine(_from_jax(jv)) == got
+
+
+def test_seg_scan_tiles_rows_are_independent(data):
+    """Rows scanned together give each row's own scan, and a row without
+    any start but its first lane is one segment."""
+    a, _, flags = data
+    rows = [a, a[::-1], a]
+    starts = [flags, flags[::-1], np.zeros(N, bool)]
+    P = torch.cat([_packed(r) for r in rows])
+    got = _affine(ec.seg_scan_tiles(P, torch.from_numpy(np.stack(starts))))
+    for i, (r, f) in enumerate(zip(rows, starts)):
+        assert got[i * N:(i + 1) * N] == _scan_oracle(r, [True] + list(f[1:]))
 
 
 @jax.jit

@@ -66,9 +66,39 @@ def test_mulmod_sees_a_broadcast_constant(shape, const, period):
         torch.zeros(shape, dtype=torch.int32)
     a = torch.zeros((3, 5, 8), dtype=torch.int32)
     for x in torch.broadcast_tensors(b, a)[0], torch.broadcast_tensors(a, b)[1]:
-        held, m = _operand(x)
+        held, m, div = _operand(x)
         assert (m == 1) is const
-        assert m == period and held.numel() == 8 * period
+        assert m == period and held.numel() == 8 * period and div == 1
+
+
+@pytest.mark.parametrize("layout", ["per_run", "per_claim", "inner_run",
+                                    "column_of_runs", "strided"])
+def test_operand_reads_a_value_per_row_in_place(layout):
+    """A value per row of a leading dimension (the carry of each run of the
+    prefix product, SHPLONK's coefficient per claim taken from a wider
+    table) is handed to the kernel as its held values with a divisor:
+    element i of the operand is element (i // div) mod m of them. Only a
+    layout that is not one block of held values is copied whole, and
+    counted."""
+    from zkodst_tpu_torch.kernels import mulmod as km
+
+    t = torch.arange(5 * 7 * 8, dtype=torch.int32).reshape(5, 7, 8)
+    x, m, div, whole = {
+        "per_run": (t[:, :1].expand(5, 7, 8), 5, 7, False),
+        "per_claim": (t[:, 3, None, :].expand(5, 11, 8), 5, 11, False),
+        "inner_run": (t[:, :, None, :].expand(5, 7, 3, 8), 35, 3, False),
+        "column_of_runs": (t[None, :, :1].expand(2, 5, 4, 8), 5, 4, False),
+        "strided": (t[:, 2:5], 15, 1, True)}[layout]
+    before = dict(km.OPERAND_COPIES)
+    held, got_m, got_div = km._operand(x)
+    assert (got_m, got_div) == (m, div)
+    n = x.numel() // 8
+    idx = (torch.arange(n) // got_div) % got_m
+    assert torch.equal(held.reshape(-1, 8)[idx], x.reshape(n, 8))
+    assert held.is_contiguous() and held.numel() == 8 * got_m
+    copied = km.OPERAND_COPIES["strided"] - before["strided"]
+    assert copied == int(whole)
+    assert km.OPERAND_COPIES["broadcast"] == before["broadcast"]
 
 
 def test_u64_cols_to_field_matches_jax():

@@ -1,7 +1,7 @@
 """Each CUDA kernel of the port against its plain twin, on the card, at
 small shapes with edge cases (identity points, doubling, P + (−P), segment
-starts across runs and chains, ragged runs and slabs, broadcast
-constants). Skips without a CUDA device. On a card
+starts across runs, warps, blocks and chains, ragged runs and slabs,
+broadcast operands). Skips without a CUDA device. On a card
 machine without JAX, run it without the suite's conftest:
 ``PYTHONPATH=. python -m pytest --noconftest tests/test_torch_kernels_cuda.py``."""
 
@@ -98,26 +98,38 @@ def test_submod(dev, F):
 
 
 @pytest.mark.parametrize("op", ["mulmod", "addmod", "submod"])
-@pytest.mark.parametrize("layout", ["column", "per_row", "both_const"])
+@pytest.mark.parametrize("layout", ["column", "per_row", "per_run",
+                                    "both_const"])
 def test_binop_broadcast_layouts(dev, op, layout):
     """A column broadcast over a leading dimension is read with its period;
-    a value per row of the leading dimension is copied whole; two
-    constants give one element."""
+    a value per row of the leading dimension (taken from a wider table, or
+    the carry of each run of S = 257 elements) with a divisor; two
+    constants give one element. None of them is copied whole."""
     x = _elements(FR, 3 * 257, 80).reshape(3, 257, 8)
     col = x[0]
+    carry = _elements(FR, 6, 82)[:3]
     a, b = {"column": (x, col[None]),
             "per_row": (col[None], x[:, :1]),
+            "per_run": (x, carry[:, None, :]),
             "both_const": (x[1, 5], x[2, 7])}[layout]
     fn, plain = getattr(mulmod, op), getattr(mulmod, op + "_plain")
+    before = dict(mulmod.OPERAND_COPIES)
     _same(fn(FR, a.to(dev), b.to(dev)), plain(FR, a, b))
     _same(fn(FR, b.to(dev), a.to(dev)), plain(FR, b, a))
+    assert mulmod.OPERAND_COPIES == before
 
 
-@pytest.mark.parametrize("W,S", [(2048, 4), (96, 7), (1, 5)])
-def test_chain_cumprod(dev, W, S):
-    x = _elements(FR, W * S, 75)
-    _same(mulmod.chain_cumprod(FR, x.to(dev), W),
-          mulmod.chain_cumprod_plain(FR, x, W))
+@pytest.mark.parametrize("F", [FR, FQ], ids=["fr", "fq"])
+@pytest.mark.parametrize("W,S", [
+    (2048, 4), (96, 7), (1, 5),
+    (2048, 64),                 # the grand products at 2^17: 16 runs a block
+    (4, 2560), (3, 4672),       # keygen's selectors, SHPLONK's inversion
+    (5, 1000), (7, 1500),       # a chunk not filled; one and a half chunks
+    (2048, 1), (3, 1024)])      # a run an element; exactly one chunk a run
+def test_chain_cumprod(dev, F, W, S):
+    x = _elements(F, W * S, 75)
+    _same(mulmod.chain_cumprod(F, x.to(dev), W),
+          mulmod.chain_cumprod_plain(F, x, W))
 
 
 @pytest.mark.parametrize("m", [1, 7, 256, 1000, 2048])
@@ -158,10 +170,29 @@ def test_chain_scan_local(dev, pts, W):
           ec.chain_scan_local_plain(P, f, W))
 
 
-@pytest.mark.parametrize("n", [8, 256, 1024])
+def _chain_aggregates(P):
+    """The MSM's largest call, (80, 24, 2048): sparse starts, long stretches
+    with none, and starts at multiples of 8, 256 and 512 lanes (thread,
+    warp and block boundaries of the kernel's layouts)."""
+    r = np.random.default_rng(83)
+    idx = torch.from_numpy(r.integers(0, 1024, (80, 2048)))
+    Pn = P[0][:, idx].permute(1, 0, 2).contiguous()
+    fn = torch.from_numpy(r.integers(0, 9, (80, 2048)) == 0)
+    fn[:, 300:900] = False
+    fn[::3, 512::512] = True
+    fn[1::3, 256::256] = True
+    thr = fn[2::3, 8::8]
+    fn[2::3, 8::8] = thr | torch.from_numpy(r.integers(0, 2, thr.shape) == 0)
+    return Pn, fn
+
+
+@pytest.mark.parametrize("n", [8, 16, 256, 1024, 2048])
 def test_seg_scan_tiles(dev, pts, n):
     P, _, f = pts
-    P, f = P[:, :, :n].contiguous(), f[:, :n]
+    if n == 2048:
+        P, f = _chain_aggregates(P)
+    else:
+        P, f = P[:, :, :n].contiguous(), f[:, :n]
     _same(ec.seg_scan_tiles(P.to(dev), f.to(dev)),
           ec.seg_scan_tiles_plain(P, f))
 

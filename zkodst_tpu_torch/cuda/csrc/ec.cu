@@ -15,8 +15,8 @@
 //   zk_scale_reduce    <- zkodst_tpu/pallas/ec.py:_scale_reduce_kernel
 //
 // The TPU kernels carry state across sequential grid steps; here a thread
-// owns a chain and loops over it instead, and the tile scan runs inside one
-// block through shared memory. Each kernel's plain PyTorch twin in
+// owns a chain and loops over it instead, and the tile scan spreads a row
+// over a thread-block cluster (see seg_scan_tiles_kernel). Each kernel's plain PyTorch twin in
 // kernels/ec.py repeats the same association of additions and doublings,
 // so the two agree limb for limb, not only as group elements.
 //
@@ -38,14 +38,16 @@
 // the point to itself (12 in two), and a warp per row that computes each
 // layer's independent products on separate lanes, so that a doubling
 // costs three products' latency and an add two.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "field.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kScanThreads = 256;
 
 // o = p + q, elementwise over batch·n.
 __global__ void __launch_bounds__(kThreads)
@@ -120,70 +122,259 @@ chain_scan_kernel(const uint32_t* __restrict__ p, const uint8_t* __restrict__ f,
   }
 }
 
-// Segmented inclusive scan of a row as one tile: block = one batch row of n
-// elements, thread t = a run of n/blockDim consecutive elements. Each thread
-// scans its run sequentially, the runs' (sum, has-start) aggregates are
-// scanned Hillis–Steele in shared memory, and each run's elements before its
-// first segment start then take the exclusive carry of the runs before it.
-__global__ void __launch_bounds__(kScanThreads)
+// seg_scan_tiles (kernel 10): a segmented inclusive scan of each row of
+// n ≤ 2048 lanes, out = f ? p : acc + p, where a row's first lane starts a
+// segment.
+//
+// What bounds it on the H100. The multiply-rate bound counts the adds the
+// data needs (31 µs for the whole (80, 24, 2048) call over 132 SMs), but a
+// scan cannot reach it: it puts 2·run + log2(threads) + 1 complete adds
+// in series, and one warp alone takes ~5.8 µs for an add in one thread,
+// ~3.2 µs split over two lanes, ~2.5 µs over four (tools/scan_probe.py):
+// a lone warp already fills its SM sub-partition's issue (two independent
+// Montgomery products in one thread take twice one), so the chain's length
+// in issued instructions is the bound. Every call on the path (rows of 16
+// to 2048 lanes, 4 to 896 rows) is bound by that chain at the card's
+// occupancy, not by the multiply rate.
+// A row in one block would leave 52 of the 132 SMs idle at the largest
+// shape, and a Hillis–Steele scan of its run totals in shared memory adds
+// ~2.7 times a lane with two block barriers a level. This design:
+// - Splits each add over two lanes that hold the same pair (SplitLayer):
+//   each computes 3 of a layer's 6 products and reads the other 3 with
+//   shuffles, so an add's chain is 6 products long, not 12. A warp is
+//   G = 16 threads of the scan.
+// - Puts a row on a thread-block cluster of C blocks (cudaLaunchKernelEx
+//   with a cluster dimension, one launch a call). A thread of the scan
+//   owns `run` consecutive lanes; the wrapper picks the least power of two
+//   that keeps a row at ≤ 256 threads and the call at ≤ 16,384 (what the
+//   card keeps resident: more only queues), so a long row is spread over
+//   several SMs and a short one keeps its chain short. The result depends
+//   on `run` and G only, not on C or the block size. One block a row (the
+//   same kernel at C = 1, with runs twice as long where a row would exceed
+//   a block) is within 6% of it at 70 and 80 rows but 1.25–2.2 times
+//   slower at 20 and 60 rows (tools/scan_probe.py).
+// - Scans work-efficiently: each thread reduces its run (run − 1 adds,
+//   nothing written); each warp scans its 16 (sum, has-start) pairs with
+//   shuffles of the 24 words (4 levels); warp 0 of each block reads the
+//   row's ≤ 16 warp totals from the cluster's blocks (distributed shared
+//   memory), scans them (≤ 4 levels) and hands each warp of its block its
+//   prefix; each thread forms its exclusive prefix (one add) and walks its
+//   run again from it, writing every lane once. Each walk requests the
+//   next lane's point before the add of this one; the second reads its
+//   inputs from L1 or L2. Nothing is added through shared memory.
+// - 180 registers a thread: at 128 threads a block an SM holds 2 blocks
+//   (8 warps). A cap of 128 registers for more warps spills; it was not
+//   kept.
+// Pairs are combined as (a earlier, b later): a missing pair (a lane past
+// the row's end) neither changes one nor takes one; b with a start keeps
+// its sum, else the sum is ec_add(a, b). The twin in kernels/ec.py repeats
+// this association, so the two agree limb for limb.
+constexpr int kTileMaxWarps = 8;        // warps a block (blockDim ≤ 256)
+constexpr uint32_t kHas = 1, kOk = 2;   // pair flags: has a start, exists
+
+// One layer of independent Fq products split over a group of L lanes that
+// hold the same operands: lane j computes products j, j + L, ... and every
+// lane reads the others back with shuffles inside its group, so a layer of
+// N products costs the latency of ceil(N / L) of them.
+template <int L>
+struct SplitLayer {
+  int j;           // this lane's place in its group
+  unsigned mask;   // the group's lanes
+
+  template <int N>
+  __device__ __forceinline__ void operator()(
+      const uint32_t* const (&a)[N], const uint32_t* const (&b)[N],
+      uint32_t* const (&r)[N]) const {
+#pragma unroll
+    for (int k = 0; k < N; k += L) {
+      uint32_t x[8], y[8], t[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        x[i] = a[k][i];
+        y[i] = b[k][i];
+      }
+#pragma unroll
+      for (int m = 1; m < L; ++m) {
+        if (k + m < N) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            x[i] = j == m ? a[k + m][i] : x[i];
+            y[i] = j == m ? b[k + m][i] : y[i];
+          }
+        }
+      }
+      zk::mont_mul<zk::Fq>(x, y, t);
+#pragma unroll
+      for (int m = 0; m < L; ++m) {
+        if (k + m < N) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            r[k + m][i] = __shfl_sync(mask, t[i], m, L);
+        }
+      }
+    }
+  }
+};
+
+struct Pair {
+  zk::Pt v;
+  uint32_t fl;
+};
+
+// b <- a ∘ b
+template <class Layer>
+__device__ __forceinline__ void combine(const Layer& mul, const Pair& a,
+                                        Pair& b) {
+  if (!(a.fl & kOk) || !(b.fl & kOk)) return;
+  if (!(b.fl & kHas)) zk::ec_add_by(mul, a.v, b.v, b.v);
+  b.fl |= a.fl;
+}
+
+// The pair held `d` lanes below (up) or at lane `src` (not up).
+__device__ __forceinline__ Pair shfl_pair(const Pair& p, int src, bool up) {
+  Pair q;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    q.v.x[i] = up ? __shfl_up_sync(0xFFFFFFFFu, p.v.x[i], src)
+                  : __shfl_sync(0xFFFFFFFFu, p.v.x[i], src);
+    q.v.y[i] = up ? __shfl_up_sync(0xFFFFFFFFu, p.v.y[i], src)
+                  : __shfl_sync(0xFFFFFFFFu, p.v.y[i], src);
+    q.v.z[i] = up ? __shfl_up_sync(0xFFFFFFFFu, p.v.z[i], src)
+                  : __shfl_sync(0xFFFFFFFFu, p.v.z[i], src);
+  }
+  q.fl = up ? __shfl_up_sync(0xFFFFFFFFu, p.fl, src)
+            : __shfl_sync(0xFFFFFFFFu, p.fl, src);
+  return q;
+}
+
+__device__ __forceinline__ void put_pair(uint32_t* sv, uint32_t* sf, int k,
+                                         const Pair& p) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    sv[24 * k + i] = p.v.x[i];
+    sv[24 * k + 8 + i] = p.v.y[i];
+    sv[24 * k + 16 + i] = p.v.z[i];
+  }
+  sf[k] = p.fl;
+}
+
+__device__ __forceinline__ void get_pair(const uint32_t* sv,
+                                         const uint32_t* sf, int k, Pair& p) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    p.v.x[i] = sv[24 * k + i];
+    p.v.y[i] = sv[24 * k + 8 + i];
+    p.v.z[i] = sv[24 * k + 16 + i];
+  }
+  p.fl = sf[k];
+}
+
+// kScanLanes lanes a thread of the scan; G of them a warp (kernels/ec.py's
+// SCAN_LANES and its twin's warp width).
+constexpr int kScanLanes = 2;
+
+__global__ void __launch_bounds__(kTileMaxWarps * 32)
 seg_scan_tiles_kernel(const uint32_t* __restrict__ p,
                       const uint8_t* __restrict__ f, uint32_t* __restrict__ o,
-                      int64_t n) {
-  __shared__ uint32_t sv[24 * kScanThreads];
-  __shared__ uint8_t sf[kScanThreads];
-  const int nthr = blockDim.x, t = threadIdx.x;
-  const int64_t b = blockIdx.x;
+                      int64_t n, int run) {
+  constexpr int L = kScanLanes, G = 32 / L;
+  __shared__ uint32_t tv[kTileMaxWarps * 24], tf[kTileMaxWarps];  // totals
+  __shared__ uint32_t xv[kTileMaxWarps * 24], xf[kTileMaxWarps];  // prefixes
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int nt = blockDim.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j = lane % L, q = lane / L;        // place in group, group
+  const SplitLayer<L> mul{j, ((1u << L) - 1) << (lane - j)};
+  const int bw = nt >> 5;                      // warps a block
+  const int nwarps = C * bw;                   // warps of the row (≤ G)
+  const int64_t b = blockIdx.x / C;
   const uint32_t* pb = p + b * 24 * n;
   const uint8_t* fb = f + b * n;
   uint32_t* ob = o + b * 24 * n;
-  const int64_t run = n / nthr, e0 = t * run;
+  const int64_t e0 = ((int64_t)(rank * bw + warp) * G + q) * run;
+  const int64_t e1 = e0 + run < n ? e0 + run : n;
 
-  zk::Pt acc, x, s;
-  uint8_t has = 0;
-  for (int64_t k = 0; k < run; ++k) {
-    int64_t e = e0 + k;
-    zk::load_pt(pb, n, e, x);
-    if (k == 0 || fb[e]) {
-      acc = x;
-    } else {
-      zk::ec_add(acc, x, s);
-      acc = s;
-    }
-    has |= fb[e];
-    zk::store_pt(ob, n, e, acc);
+  // 1. this thread's run: its sum since its last segment start
+  Pair mine;
+  mine.fl = 0;
+  zk::Pt x, next;
+  bool nst = false;
+  if (e0 < e1) {
+    zk::load_pt(pb, n, e0, next);
+    nst = e0 == 0 || fb[e0];
   }
-  zk::store_pt(sv, nthr, t, acc);
-  sf[t] = has;
+  for (int64_t e = e0; e < e1; ++e) {
+    x = next;
+    const bool st = nst;
+    if (e + 1 < e1) {
+      zk::load_pt(pb, n, e + 1, next);
+      nst = fb[e + 1];
+    }
+    if (e == e0 || st)
+      mine.v = x;
+    else
+      zk::ec_add_by(mul, mine.v, x, mine.v);
+    mine.fl |= kOk | (st ? kHas : 0u);
+  }
+  // 2. inclusive scan of the warp's G pairs
+#pragma unroll 1
+  for (int d = 1; d < G; d <<= 1) {
+    const Pair a = shfl_pair(mine, d * L, true);
+    if (q >= d) combine(mul, a, mine);
+  }
+  Pair acc = shfl_pair(mine, L, true);         // the pair of the thread
+  if (q == 0) acc.fl = 0;                      // before
+  if (lane == 32 - L) put_pair(tv, tf, warp, mine);
+  cluster.sync();
+  // 3. warp 0 of each block scans the row's warp totals on its threads
+  //    and hands each warp of the block the pair of the warps before it
+  if (warp == 0) {
+    Pair w;
+    w.fl = 0;
+    if (q < nwarps)
+      get_pair(cluster.map_shared_rank(tv, q / bw),
+               cluster.map_shared_rank(tf, q / bw), q % bw, w);
+#pragma unroll 1
+    for (int d = 1; d < nwarps; d <<= 1) {
+      const Pair a = shfl_pair(w, d * L, true);
+      if (q >= d) combine(mul, a, w);
+    }
+    const int first = rank * bw;               // this block's first warp
+    const int src = first + q - 1;
+    const Pair pre = shfl_pair(w, (src >= 0 && src < G ? src : 0) * L + j,
+                               false);
+    if (q < bw && j == 0) {
+      Pair r = pre;
+      if (src < 0) r.fl = 0;
+      put_pair(xv, xf, q, r);
+    }
+  }
+  // done with the other blocks' shared memory: they may leave after the
+  // wait at the end
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
   __syncthreads();
-  for (int d = 1; d < nthr; d <<= 1) {
-    uint8_t of = 0;
-    if (t >= d) {
-      zk::load_pt(sv, nthr, t - d, x);
-      of = sf[t - d];
+  // 4. the exclusive prefix of this thread, then its run again
+  Pair wp;
+  get_pair(xv, xf, warp, wp);
+  if (!(acc.fl & kOk))
+    acc = wp;
+  else
+    combine(mul, wp, acc);
+  if (e0 < e1) zk::load_pt(pb, n, e0, next);
+  for (int64_t e = e0; e < e1; ++e) {
+    x = next;
+    const bool st = e == 0 || fb[e];
+    if (e + 1 < e1) zk::load_pt(pb, n, e + 1, next);
+    if (st || !(acc.fl & kOk)) {
+      acc.v = x;
+      acc.fl = kOk;
+    } else {
+      zk::ec_add_by(mul, acc.v, x, acc.v);
     }
-    __syncthreads();
-    if (t >= d) {
-      if (!has) {
-        zk::ec_add(x, acc, s);
-        acc = s;
-      }
-      has |= of;
-      zk::store_pt(sv, nthr, t, acc);
-      sf[t] = has;
-    }
-    __syncthreads();
+    if (j == 0) zk::store_pt(ob, n, e, acc.v);
   }
-  if (t > 0) {
-    zk::Pt carry;
-    zk::load_pt(sv, nthr, t - 1, carry);
-    for (int64_t k = 0; k < run; ++k) {
-      int64_t e = e0 + k;
-      if (fb[e]) break;
-      zk::load_pt(ob, n, e, x);
-      zk::ec_add(carry, x, s);
-      zk::store_pt(ob, n, e, s);
-    }
-  }
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 // One layer of independent Fq products across the lanes of a warp: lane j
@@ -282,15 +473,34 @@ extern "C" int zk_chain_scan(const void* p, const void* f, void* o,
   return (int)cudaGetLastError();
 }
 
-// threads = the run count per row, chosen by the caller (n % threads == 0,
-// threads <= 256).
+// Each row is a cluster of `cluster` blocks of `threads` threads (a
+// multiple of 32, ≤ 256), each pair of lanes a thread of the scan owning
+// `run` lanes of the row: cluster·threads / 2 · run ≥ n, and a row has at
+// most 16 warps. A cluster launch the card refuses is returned as its
+// error, not run another way.
 extern "C" int zk_seg_scan_tiles(const void* p, const void* f, void* o,
-                                 long long batch, long long n, int threads,
-                                 void* stream) {
+                                 long long batch, long long n, int run,
+                                 int threads, int cluster, void* stream) {
   if (batch * n == 0) return 0;
-  seg_scan_tiles_kernel<<<(unsigned)batch, threads, 0,
-                          (cudaStream_t)stream>>>(
-      (const uint32_t*)p, (const uint8_t*)f, (uint32_t*)o, n);
+  if (threads % 32 || threads > kTileMaxWarps * 32 || cluster < 1 ||
+      cluster * (threads / 32) > 32 / kScanLanes ||
+      (long long)cluster * threads / kScanLanes * run < n)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(batch * cluster));
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, seg_scan_tiles_kernel, (const uint32_t*)p, (const uint8_t*)f,
+      (uint32_t*)o, (int64_t)n, run);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -5,7 +5,8 @@ it runs the kernel's plain PyTorch version (the CPU path, which the tests
 use); on a CUDA tensor it launches the kernel and raises if the build or
 the launch fails — there is no fallback from a kernel to its twin. Every
 accepted launch adds one to its entry point's count (``build.call``);
-:func:`reset_counts` and :func:`counts` read them per wrapper.
+:func:`reset_counts` and :func:`counts` read them per wrapper;
+:func:`copies` reads the binop operands copied whole since the reset.
 """
 
 from __future__ import annotations
@@ -31,8 +32,14 @@ WRAPPERS = {
 
 def reset_counts() -> None:
     build.LAUNCHES.clear()
+    for kind in mulmod.OPERAND_COPIES:
+        mulmod.OPERAND_COPIES[kind] = 0
 
 
 def counts() -> dict:
     return {name: build.LAUNCHES.get(entry, 0)
             for name, (_, entry) in WRAPPERS.items()}
+
+
+def copies() -> dict:
+    return dict(mulmod.OPERAND_COPIES)

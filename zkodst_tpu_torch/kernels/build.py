@@ -30,9 +30,9 @@ _I = ctypes.c_int
 # C entry points and their argument types (every one returns cudaError_t)
 SIGNATURES = {
     "mulmod": {
-        "zk_mulmod": [_P, _P, _P, _LL, _LL, _LL, _I, _P],
-        "zk_addmod": [_P, _P, _P, _LL, _LL, _LL, _I, _P],
-        "zk_submod": [_P, _P, _P, _LL, _LL, _LL, _I, _P],
+        "zk_mulmod": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _I, _P],
+        "zk_addmod": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _I, _P],
+        "zk_submod": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _I, _P],
         "zk_chain_cumprod": [_P, _P, _LL, _LL, _I, _P],
         "zk_cumprod_tile": [_P, _P, _LL, _I, _P],
     },
@@ -40,7 +40,7 @@ SIGNATURES = {
         "zk_ec_add": [_P, _P, _P, _LL, _LL, _P],
         "zk_seg_step": [_P, _P, _P, _P, _LL, _LL, _P],
         "zk_chain_scan": [_P, _P, _P, _LL, _LL, _LL, _P],
-        "zk_seg_scan_tiles": [_P, _P, _P, _LL, _LL, _I, _P],
+        "zk_seg_scan_tiles": [_P, _P, _P, _LL, _LL, _I, _I, _I, _P],
         "zk_scale_reduce": [_P, _P, _LL, _LL, _I, _P],
     },
     "ntt": {

@@ -31,7 +31,19 @@ from ..ops.curve import add_limbs, dbl_limbs, lanes64
 from ..ops.field import to_i32
 from .build import call
 
-SCAN_THREADS = 256          # runs per row in seg_scan_tiles (≤ 256)
+# seg_scan_tiles: each thread of the scan owns `run` consecutive lanes of a
+# row and SCAN_LANES lanes of the card (which split each add's products:
+# the kernel's kScanLanes), so 32 / SCAN_LANES threads of the scan make a
+# warp. run is the least power of two that leaves a row at most
+# SCAN_ROW_THREADS threads and the call at most SCAN_CALL_THREADS (about
+# what the card keeps resident), capped at SCAN_MAX_RUN; the twin repeats
+# the kernel's association for that run and warp width. A row's warps are
+# spread over a cluster of blocks of at most SCAN_BLOCK threads.
+SCAN_ROW_THREADS = 256
+SCAN_CALL_THREADS = 16384
+SCAN_MAX_RUN = 16
+SCAN_LANES = 2
+SCAN_BLOCK = 128
 
 
 def _packed(y: torch.Tensor) -> torch.Tensor:
@@ -129,57 +141,122 @@ def chain_scan_local(p: torch.Tensor, f: torch.Tensor, W: int) -> torch.Tensor:
     return out
 
 
-# -- kernel 10: segmented scan of a row as one tile -------------------------------
+# -- kernel 10: segmented scan of a row, spread over a cluster of blocks ------
 
-def _runs(n: int) -> int:
-    return min(SCAN_THREADS, n)
+def _scan_run(batch: int, n: int) -> int:
+    run = 1
+    while run < SCAN_MAX_RUN and (run * SCAN_ROW_THREADS < n or
+                                  batch * -(-n // run) > SCAN_CALL_THREADS):
+        run *= 2
+    return run
+
+
+def _scan_layout(batch: int, n: int):
+    """(run, threads a block, blocks a cluster) of rows of n lanes:
+    ceil(n / run) threads of the scan a row, rounded up to whole warps."""
+    run = _scan_run(batch, n)
+    warps = -(-n // (32 // SCAN_LANES * run))
+    threads = min(SCAN_BLOCK, 32 * warps)
+    return run, threads, -(-32 * warps // threads)
+
+
+def _where_add(a, b, need):
+    """b with ec_add(a, b) at the positions `need`: (…, 3, 8) points."""
+    out = b.clone()
+    if bool(need.any()):
+        out[need] = add_limbs(a[need], b[need])
+    return out
+
+
+def _combine(a, b):
+    """b <- a ∘ b on pairs (points, has a start, exists), a earlier: a
+    missing pair (past the row's end) neither changes one nor takes one;
+    b with a start keeps its sum, else the sum is ec_add(a, b) — the
+    kernel's rule."""
+    av, ah, ao = a
+    bv, bh, bo = b
+    both = ao & bo
+    return _where_add(av, bv, both & ~bh), bh | (both & ah), bo
+
+
+def _shift_up(pair, d: int):
+    """Each pair takes the one d places before it along the last axis of
+    its flags (a shuffle up); the first d take a missing pair."""
+    v, h, o = pair
+    m = o.shape[-1]
+    return (torch.cat([v[..., :d, :, :], v[..., :m - d, :, :]], -3),
+            torch.cat([h[..., :d], h[..., :m - d]], -1),
+            torch.cat([torch.zeros_like(o[..., :d]), o[..., :m - d]], -1))
 
 
 def seg_scan_tiles_plain(p, f):
     B, _, n = p.shape
-    nthr = _runs(n)
-    run = n // nthr
-    pts = lanes64(p).reshape(B, nthr, run, 3, 8)
-    fl = f.bool().reshape(B, nthr, run)
-    out = torch.empty_like(pts)
-    acc = pts[:, :, 0]
-    out[:, :, 0] = acc
-    has = fl[:, :, 0].clone()
+    run, G = _scan_run(B, n), 32 // SCAN_LANES   # G threads a warp
+    T = -(-n // (G * run)) * G                   # threads of the row
+    nw = T // G
+    pad = T * run - n
+    pts = lanes64(p)
+    pts = torch.cat([pts, pts.new_zeros((B, pad, 3, 8))], dim=1) \
+        .reshape(B, T, run, 3, 8)
+    st = f.bool().clone()
+    st[:, 0] = True
+    st = torch.cat([st, st.new_zeros((B, pad))], dim=1).reshape(B, T, run)
+    ek = (torch.arange(T * run, device=p.device) < n).reshape(T, run) \
+        .expand(B, T, run)
+    # 1. each thread's run: its sum since its last start
+    v, h, o = pts[:, :, 0], st[:, :, 0] & ek[:, :, 0], ek[:, :, 0].clone()
     for k in range(1, run):
-        x = pts[:, :, k]
-        acc = torch.where(fl[:, :, k, None, None], x, add_limbs(acc, x))
-        out[:, :, k] = acc
-        has |= fl[:, :, k]
+        x, sk, e = pts[:, :, k], st[:, :, k], ek[:, :, k]
+        v = torch.where(sk[..., None, None], x, _where_add(v, x, e & ~sk))
+        h = h | (sk & e)
+    # 2. inclusive scan of each warp's G pairs
+    pair = (v.reshape(B, nw, G, 3, 8), h.reshape(B, nw, G),
+            o.reshape(B, nw, G))
     d = 1
-    while d < nthr:                      # Hillis–Steele over the runs
-        me, mh = acc[:, d:], has[:, d:]
-        new = torch.where(mh[..., None, None], me, add_limbs(acc[:, :-d], me))
-        acc = torch.cat([acc[:, :d], new], dim=1)
-        has = torch.cat([has[:, :d], mh | has[:, :-d]], dim=1)
+    while d < G:
+        pair = _combine(_shift_up(pair, d), pair)
         d <<= 1
-    if nthr > 1:                         # exclusive carry of earlier runs
-        before = torch.cumsum(fl[:, 1:].to(torch.int32), dim=-1) == 0
-        tail = out[:, 1:]
-        carried = add_limbs(acc[:, :-1, None].expand_as(tail), tail)
-        out[:, 1:] = torch.where(before[..., None, None], carried, tail)
-    return _packed(out.reshape(B, n, 3, 8))
+    before = _shift_up(pair, 1)
+    # 3. the warp totals, scanned; each warp takes the one before it
+    w = tuple(x[:, :, G - 1] for x in pair)
+    d = 1
+    while d < nw:
+        w = _combine(_shift_up(w, d), w)
+        d <<= 1
+    wp = _shift_up(w, 1)
+    wp = tuple(x[:, :, None].expand((B, nw, G) + x.shape[2:]) for x in wp)
+    # 4. each thread's exclusive prefix (the warps' alone at lane 0), then
+    #    its run again
+    ex = _combine(wp, before)
+    lead = ~before[2]
+    ex = (torch.where(lead[..., None, None], wp[0], ex[0]), ex[1],
+          torch.where(lead, wp[2], ex[2]))
+    av, _, ao = (x.reshape((B, T) + x.shape[3:]) for x in ex)
+    out = torch.empty_like(pts)
+    for k in range(run):
+        x, sk, e = pts[:, :, k], st[:, :, k] | ~ao, ek[:, :, k]
+        av = torch.where(sk[..., None, None], x, _where_add(av, x, e & ~sk))
+        ao = ao | e
+        out[:, :, k] = av
+    return _packed(out.reshape(B, T * run, 3, 8)[:, :n])
 
 
 def seg_scan_tiles(p: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
-    """Segmented inclusive scan of each row, run as one tile (one block);
+    """Segmented inclusive scan of each row (one cluster of blocks a row);
     a row's first lane starts a segment."""
     _check_points(p)
     f = _flags(f, p)
-    n = p.shape[2]
-    if n % _runs(n):
-        raise ValueError(f"a row of {n} lanes must be a multiple of "
-                         f"{SCAN_THREADS} above it")
+    B, _, n = p.shape
+    run, threads, cluster = _scan_layout(B, n)
+    if threads // 32 * cluster > 32 // SCAN_LANES:
+        raise ValueError(f"a row of {n} lanes needs {cluster} blocks of "
+                         f"{threads} threads, more than the scan spreads")
     if p.device.type == "cpu":
         return seg_scan_tiles_plain(p, f)
     p = p.contiguous()
     out = torch.empty_like(p)
     call("ec", "zk_seg_scan_tiles", p.data_ptr(), f.data_ptr(),
-         out.data_ptr(), p.shape[0], n, _runs(n))
+         out.data_ptr(), B, n, run, threads, cluster)
     return out
 
 

@@ -13,20 +13,27 @@ wrapper                replaces (``zkodst_tpu/pallas/mulmod.py``)
 =====================  ===============================================
 
 mulmod, addmod and submod are bound on the card by memory (96 bytes per
-element, 64 when one operand is a broadcast constant, which the kernel
-reads once instead of a materialised copy): the R² and raw-1 multipliers
-of the witness and MSM scalars, β, γ and the θ powers of the grand
-products, the quotient's challenges and constants (``1 − l_last``,
-``0 − x``). An operand broadcast over leading dimensions (SHPLONK's ω^j
-against every claim) is read with the period of the column it repeats.
-``chain_cumprod`` gives each of W threads a run of S = n/W contiguous
-elements; ``cumprod_tile`` scans up to a few thousand elements
-in one block. :meth:`..ops.field.Field.cumprod_incl` chains them with
-mulmod. Every output is a canonical field value, so a twin need not repeat
-its kernel's order of products to agree with it limb for limb.
+element, 64 when one operand is broadcast, which the kernel reads in
+place instead of a materialised copy). Each operand is read through a
+period and a divisor: output element i reads element (i / div) mod period
+of the operand's held elements. That covers a broadcast constant (the R²
+and raw-1 multipliers of the witness and MSM scalars, β, γ and the θ
+powers of the grand products, the quotient's ``1 − l_last`` and
+``0 − x``), a column broadcast over leading dimensions (SHPLONK's ω^j
+against every claim) and a value per row of a leading dimension (the
+carry of each run of ``cumprod_incl``, SHPLONK's coefficient per claim).
+:data:`OPERAND_COPIES` counts the operands that the wrappers still copy
+whole. ``chain_cumprod`` scans runs of S = n/W contiguous elements with a
+block per run (several short runs a block); ``cumprod_tile`` scans up to
+a few thousand elements in one block. :meth:`..ops.field.Field.cumprod_incl`
+chains them with mulmod. Every output is a canonical field value, so a
+twin need not repeat its kernel's order of products to agree with it limb
+for limb.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -40,17 +47,35 @@ def _ready(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+# Operands of a binop launch copied whole since the last reset: "broadcast"
+# (an operand with a stride-0 dimension that could not be read in place)
+# and "strided" (an operand without one whose elements are not contiguous).
+OPERAND_COPIES = {"broadcast": 0, "strided": 0}
+
+
 def _operand(x: torch.Tensor):
-    """(tensor of m elements, m) such that element i of the broadcast x is
-    element i mod m of the tensor: x repeats one block over its leading
-    broadcast (stride-0) dimensions. Any other layout is copied whole."""
-    lead = 0
-    while lead < x.dim() - 1 and (x.stride(lead) == 0 or x.shape[lead] == 1):
-        lead += 1
-    base = x[(0,) * lead]
-    if not base.is_contiguous():
-        base = x
-    return _ready(base), base.numel() // 8
+    """(tensor of m elements, m, div) such that element i of the broadcast
+    x is element (i // div) mod m of the tensor. The dimensions of x that
+    hold more than one value must be one block, with broadcast (stride-0)
+    or size-1 dimensions before it (the period) and after it (the
+    divisor); the block is copied only if it is not contiguous (a value
+    per claim taken from a wider table: m elements). Any other layout is
+    copied whole and counted in OPERAND_COPIES."""
+    dims, strides = x.shape[:-1], x.stride()[:-1]
+    real = [j for j, (d, st) in enumerate(zip(dims, strides))
+            if d > 1 and st != 0]
+    if not real:
+        return _ready(x[(0,) * len(dims)]), 1, 1
+    a, b = real[0], real[-1] + 1
+    if x.stride(-1) == 1 and all(strides[j] != 0 or dims[j] == 1
+                                 for j in range(a, b)):
+        block = x[(0,) * a + (slice(None),) * (b - a) + (0,) * (len(dims) - b)]
+        period, div = block.numel() // 8, math.prod(dims[b:])
+        if block.is_contiguous() or block.numel() < x.numel():
+            return _ready(block), period, div
+    kind = "broadcast" if 0 in strides else "strided"
+    OPERAND_COPIES[kind] += 1
+    return _ready(x), x.numel() // 8, 1
 
 
 def _check(name: str, *xs: torch.Tensor) -> None:
@@ -66,9 +91,11 @@ def _binop(entry: str, F: Field, a: torch.Tensor,
            b: torch.Tensor) -> torch.Tensor:
     """Launch `entry` on broadcast operands a, b of one shape."""
     out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
-    (a, pa), (b, pb) = _operand(a), _operand(b)
+    if out.numel() == 0:
+        return out
+    (a, pa, da), (b, pb, db) = _operand(a), _operand(b)
     call("mulmod", entry, a.data_ptr(), b.data_ptr(), out.data_ptr(),
-         out.numel() // 8, pa, pb, F.kernel_id)
+         out.numel() // 8, pa, da, pb, db, F.kernel_id)
     return out
 
 

@@ -1,0 +1,2 @@
+"""Measurement scripts of the port, run on a CUDA card (not on the main
+path)."""
