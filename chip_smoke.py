@@ -18,10 +18,15 @@ under the profiler to read each kernel's device time on the path from the
 trace, then holds every kernel against its plain PyTorch version at each
 shape that run gave it, times both, and prints one JSON line of kernel
 records (with each kernel's registers, stack frame and spills as ptxas
-reports them, and scale_reduce's dependent steps and time per step), the
+reports them, scale_reduce's dependent steps and time per step, and
+cumprod_tile's cluster, dependent products and time per product), the
 device time of one ``FR.inv_batch`` of 73·2^17 elements (kernels 4, 5 and 1
-and the copies around them) and the operands the binop wrappers copied
-whole on the main path, and, last, ``{"ok": true, "device": {...}}``.
+and whatever else it launches, each kernel's traced launches held to its
+wrapper's count, and no launch that moves a whole column) and the
+operands the binop wrappers copied whole on the main path, and, last,
+``{"ok": true, "device": {...}}``. Kernels 4 and 5 are also held to
+their twins in both directions (and kernel 5 inclusive and exclusive) at
+every shape the path gave them.
 The ``inv_batch`` runs in a process of its own (``--inv-batch`` does only
 that and prints its JSON). Any failure exits non-zero before the last
 line. It imports nothing of JAX or
@@ -31,6 +36,7 @@ zkodst_tpu and writes nothing outside the kernel build directories.
 from __future__ import annotations
 
 import hashlib
+import inspect
 import json
 import math
 import os
@@ -99,11 +105,22 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def call_key(args, kw):
+    """A call's shapes and flags: tensors by shape, the rest by value."""
+    import torch
+
+    def k(a):
+        return tuple(a.shape) if isinstance(a, torch.Tensor) else a
+    return tuple(k(a) for a in args) + tuple((n, k(v))
+                                             for n, v in sorted(kw.items()))
+
+
 class Recorder:
     """Wraps each kernel wrapper where the main path looks it up, keeps a
-    copy of the inputs of the first call per distinct shape, counts the
-    calls per shape and keeps the work (bytes, operations) of every call
-    on its own inputs."""
+    copy of the inputs of the first call per distinct shape and flags
+    (positional arguments, keyword arguments), counts the calls per key
+    and keeps the work (bytes, operations) of every call on its own
+    inputs."""
 
     def __init__(self, sites):
         self.sites = sites              # name -> [(module, attr)]
@@ -127,17 +144,27 @@ class Recorder:
     def _wrap(self, name, fn):
         import torch
 
-        def rec(*args):
-            key = tuple(tuple(a.shape) if isinstance(a, torch.Tensor)
-                        else a for a in args)
+        def keep(a):
+            return _copy(a) if isinstance(a, torch.Tensor) else a
+
+        def rec(*args, **kw):
+            key = call_key(args, kw)
             if (name, key) not in self.calls:
-                self.calls[(name, key)] = tuple(
-                    _copy(a) if isinstance(a, torch.Tensor) else a
-                    for a in args)
+                self.calls[(name, key)] = (tuple(keep(a) for a in args),
+                                           {n: keep(v) for n, v in kw.items()})
             self.n[(name, key)] = self.n.get((name, key), 0) + 1
-            self.work.setdefault(name, []).append(work(name, args))
-            return fn(*args)
+            self.work.setdefault(name, []).append(work(name, args, kw))
+            return fn(*args, **kw)
         return rec
+
+
+def fresh(kw):
+    """`kw` with a new output buffer in place of a recorded one, so that a
+    kernel and its twin never write into one tensor."""
+    import torch
+
+    return {n: torch.empty_like(v) if n == "out" and v is not None else v
+            for n, v in kw.items()}
 
 
 # a device kernel's name in a profiler trace -> its wrapper; the binop
@@ -238,12 +265,13 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def work(name, args):
+def work(name, args, kw=None):
     """(bytes moved, 32-bit multiply results) the call needs on these
     inputs: each input read once (a broadcast constant once, not once per
-    element), each output written once; additions counted where this data
-    needs them (a scan adds once per element that continues a segment,
-    seg_step once per element it does not keep)."""
+    element; of a strided read only the elements read), each output
+    written once; additions counted where this data needs them (a scan
+    adds once per element that continues a segment, seg_step once per
+    element it does not keep)."""
     import torch
 
     if name in ("mulmod", "addmod", "submod"):
@@ -255,8 +283,10 @@ def work(name, args):
         n, W = args[1].shape[0], args[2]
         return 64 * n, MULMOD_OPS * (n - W)
     if name == "cumprod_tile":
-        m = args[1].shape[0]
-        return 64 * m, MULMOD_OPS * (m - 1)
+        a = tile_args(args, kw or {})
+        m = a["m"]
+        read = m - 1 if a["exclusive"] else m   # the last is not needed
+        return 32 * (read + m), MULMOD_OPS * max(read - 1, 0)
     if name in ("ntt_tail", "ntt_head"):
         B, n, _ = args[1].shape
         if name == "ntt_tail":
@@ -286,16 +316,44 @@ def work(name, args):
     raise KeyError(name)
 
 
+def tile_args(args, kw) -> dict:
+    """The arguments of a cumprod_tile call by name, m resolved."""
+    from zkodst_tpu_torch.kernels import mulmod as kmul
+
+    ba = inspect.signature(kmul.cumprod_tile_plain).bind(*args, **kw)
+    ba.apply_defaults()
+    if ba.arguments["m"] is None:
+        ba.arguments["m"] = ba.arguments["x"].shape[0]
+    return ba.arguments
+
+
+def flag_variants(name, kw):
+    """The other directions (and, for cumprod_tile, the other output
+    kind) of a recorded call of kernel 4 or 5, as keyword arguments."""
+    if name == "chain_cumprod":
+        return [{**kw, "reverse": r} for r in (False, True)]
+    if name == "cumprod_tile":
+        return [{**kw, "reverse": r, "exclusive": e}
+                for r in (False, True) for e in (False, True)]
+    return []
+
+
 INV_BATCH_N = 73 << 17     # SHPLONK's inversion: 73 claims × 2^17 points
 
 
 def inv_batch_trace(F) -> dict:
     """Device time of one warm ``F.inv_batch`` of INV_BATCH_N random
     nonzero elements, from a profiler trace: every kernel it launches
-    (the prefix and suffix products' kernels 4, 5 and 1, the copies and
-    flips around them), by wrapper, and their sum."""
+    (the prefix and suffix products' kernels 4, 5 and 1, and any copy or
+    fill around them), by wrapper, their sum, each wrapper's traced
+    launches beside the launches its wrapper counted, and each other
+    launch with its device time beside the least time a launch that
+    moves the whole column could take (its 32-byte elements read or
+    written once at the card's memory rate)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from zkodst_tpu_torch import kernels
 
     g = torch.Generator(device="cuda")
     g.manual_seed(7)
@@ -305,20 +363,51 @@ def inv_batch_trace(F) -> dict:
     x = (x - ((x >= 1 << 31).to(torch.int64) << 32)).to(torch.int32)
     F.inv_batch(x)
     torch.cuda.synchronize()
+    kernels.reset_counts()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         F.inv_batch(x)
         torch.cuda.synchronize()
-    by, launches = {}, 0
+    counted = {k: c for k, c in kernels.counts().items() if c}
+    by, traced, other, launches = {}, {}, [], 0
     for ev in prof.key_averages():
         dt = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0))
         if ev.device_type == torch.autograd.DeviceType.CUDA and dt > 0:
-            name = traced_kernel(ev.key) or "other (copies, flips, fills)"
+            name = traced_kernel(ev.key) or OTHER
             by[name] = by.get(name, 0.0) + dt / 1e3
             launches += ev.count
+            if name == OTHER:
+                other.append({"kernel": ev.key[:100], "launches": ev.count,
+                              "ms": dt / 1e3})
+            else:
+                traced[name] = traced.get(name, 0) + ev.count
     return {"elements": INV_BATCH_N, "device_ms": sum(by.values()),
-            "launches": launches, "by_kernel": by}
+            "launches": launches, "by_kernel": by,
+            "traced_launches": traced, "wrapper_launches": counted,
+            "other": other,
+            "whole_column_ms": 32 * INV_BATCH_N / HBM_BYTES_PER_S * 1e3}
+
+
+OTHER = "other (copies, flips, fills)"
+
+
+def inv_batch_faults(inv) -> list:
+    """What the inv_batch record shows wrong: a kernel whose traced
+    launches differ from its wrapper's count, or another launch that took
+    as long as moving the whole column once (a copy, flip, cat or fill of
+    it)."""
+    out = []
+    if inv["traced_launches"] != inv["wrapper_launches"]:
+        out.append(f"inv_batch: traced launches {inv['traced_launches']} "
+                   f"!= the wrappers' counts {inv['wrapper_launches']}")
+    for row in inv["other"]:
+        if row["ms"] / row["launches"] >= inv["whole_column_ms"]:
+            out.append(f"inv_batch: {row['kernel']} took {row['ms']:.4f} ms "
+                       f"in {row['launches']} launches, as long as a pass "
+                       f"over the whole column ({inv['whole_column_ms']:.4f} "
+                       "ms)")
+    return out
 
 
 def inv_batch_only() -> int:
@@ -351,6 +440,75 @@ def inv_batch_apart():
     log(f"inv_batch failed (exit {out.returncode}): "
         f"{out.stderr.strip()[-400:]}")
     return None
+
+
+def hold_to_twins(rec, wrappers, plains, imad_rate, failures) -> dict:
+    """Every recorded call again, on the kernel and on its twin: equal limb
+    for limb (kernels 4 and 5 also in the directions and output kinds the
+    path did not give that shape), timed, with its bound. Returns wrapper ->
+    [(record, (args, kw))]; appends what differs to `failures`."""
+    import torch
+
+    from zkodst_tpu_torch.kernels import mulmod as kmul
+
+    records = {}
+    for (name, key), (args, kw) in sorted(rec.calls.items(),
+                                          key=lambda kv: str(kv[0])):
+        fn, plain = wrappers[name], plains[name]
+        # kernels 4 and 5 in the directions (and output kinds) that the
+        # path did not give this shape too
+        for flags in flag_variants(name, kw):
+            if (name, call_key(args, flags)) in rec.calls:
+                continue
+            out = fn(*args, **fresh(flags))
+            ref = plain(*args, **fresh(flags))
+            torch.cuda.synchronize()
+            said = {k: flags[k] for k in ("reverse", "exclusive")
+                    if k in flags}
+            if not torch.equal(out.cpu(), ref.cpu()):
+                failures.append(f"{name} {key} with {said}: kernel != plain")
+            else:
+                log(f"{name} {key} with {said}: equal to plain")
+            del out, ref
+        out = fn(*args, **fresh(kw))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = plain(*args, **fresh(kw))
+        torch.cuda.synchronize()
+        plain_once = (time.perf_counter() - t1) * 1e3
+        err = int((out.to(torch.int64) - ref.to(torch.int64)).abs().max()) \
+            if out.numel() else 0
+        if out.shape != ref.shape or err != 0:
+            failures.append(f"{name} {key}: kernel != plain (max abs limb "
+                            f"difference {err})")
+        del out, ref
+        nbytes, ops = work(name, args, kw)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / imad_rate * 1e3
+        shape = " ".join(getattr(k, "name", str(k)) for k in key)
+        kw1 = fresh(kw)
+        entry = {"shape": shape, "calls": rec.n[(name, key)],
+                 "max_abs_err": err,
+                 "ms": time_ms(lambda: fn(*args, **kw1), 7),
+                 "plain_ms": plain_once, "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        log(f"{name} {shape}: {'equal to' if err == 0 else 'DIFFERS from'} "
+            f"plain; kernel {entry['ms']:.4f} ms, plain {plain_once:.1f} ms "
+            f"(one cold call), bound {entry['bound_ms']:.4f} ms "
+            f"({entry['bound_by']})")
+        if name == "scale_reduce":      # latency-bound: its own floor
+            entry["serial_steps"] = serial_steps(args)
+            entry["us_per_step"] = entry["ms"] * 1e3 / entry["serial_steps"]
+            log(f"scale_reduce {shape}: {entry['serial_steps']} dependent "
+                f"steps in series, {entry['us_per_step']:.3f} us each")
+        if name == "cumprod_tile":      # latency-bound: its own floor
+            m = tile_args(args, kw)["m"]
+            entry["cluster"], entry["threads"] = kmul.tile_layout(m)
+            entry["serial_products"] = kmul.tile_serial_products(m)
+            entry["us_per_product"] = (entry["ms"] * 1e3
+                                       / entry["serial_products"])
+        records.setdefault(name, []).append((entry, (args, kw)))
+    return records
 
 
 def main(argv) -> int:
@@ -567,31 +725,40 @@ def main(argv) -> int:
         "scale_reduce": [(msm, "scale_reduce")],
     }
     # the recorded run, traced: SRS, keygen and prove once more, so that
-    # each kernel's device time on the path is read from the trace
-    with Recorder(sites) as rec, tprofile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        params = srs.setup(K, seed=SRS_SEED, device="cuda")
-        pk = keygen.keygen(params, pr.built.circ)
-        pr2 = api.Blake2fProver(built=pr.built, params=params, pk=pk,
-                                metrics=pr.metrics)
-        pr2.prove(*inputs, seed=BLIND_SEED)
-        torch.cuda.synchronize()
-        del params, pk, pr2
+    # each kernel's device time on the path is read from the trace; one
+    # profiler session a phase (a single session over all three lost a
+    # share of its kernel records in one of six runs on an H100)
     traced = {}                         # wrapper -> [device ms, launches]
     unnamed = set()
-    for ev in prof.key_averages():
-        dt = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-        if ev.device_type != torch.autograd.DeviceType.CUDA or dt <= 0:
-            continue
-        name = traced_kernel(ev.key)
-        if name is None:
-            if "binop_kernel" in ev.key:
-                unnamed.add(ev.key[:120])
-            continue
-        t = traced.setdefault(name, [0.0, 0])
-        t[0] += dt / 1e3
-        t[1] += ev.count
+
+    def traced_phase(fn):
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            dt = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+            if ev.device_type != torch.autograd.DeviceType.CUDA or dt <= 0:
+                continue
+            name = traced_kernel(ev.key)
+            if name is None:
+                if "binop_kernel" in ev.key:
+                    unnamed.add(ev.key[:120])
+                continue
+            t = traced.setdefault(name, [0.0, 0])
+            t[0] += dt / 1e3
+            t[1] += ev.count
+        return out
+
+    with Recorder(sites) as rec:
+        params = traced_phase(
+            lambda: srs.setup(K, seed=SRS_SEED, device="cuda"))
+        pk = traced_phase(lambda: keygen.keygen(params, pr.built.circ))
+        pr2 = api.Blake2fProver(built=pr.built, params=params, pk=pk,
+                                metrics=pr.metrics)
+        traced_phase(lambda: pr2.prove(*inputs, seed=BLIND_SEED))
+        del params, pk, pr2
     if unnamed:
         failures.append(f"trace rows naming no kernel: {sorted(unnamed)}")
     wrappers = {name: fn for name, (fn, _) in kernels.WRAPPERS.items()}
@@ -606,41 +773,8 @@ def main(argv) -> int:
               "seg_scan_tiles": kec.seg_scan_tiles_plain,
               "chain_scan_local": kec.chain_scan_local_plain,
               "scale_reduce": kec.scale_reduce_plain}
-    records = {}
     t_check = time.perf_counter()
-    for (name, key), args in sorted(rec.calls.items(),
-                                    key=lambda kv: str(kv[0])):
-        fn, plain = wrappers[name], plains[name]
-        out = fn(*args)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        ref = plain(*args)
-        torch.cuda.synchronize()
-        plain_once = (time.perf_counter() - t1) * 1e3
-        err = int((out.to(torch.int64) - ref.to(torch.int64)).abs().max()) \
-            if out.numel() else 0
-        if out.shape != ref.shape or err != 0:
-            failures.append(f"{name} {key}: kernel != plain (max abs limb "
-                            f"difference {err})")
-        del out, ref
-        nbytes, ops = work(name, args)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / imad_rate * 1e3
-        shape = " ".join(getattr(k, "name", str(k)) for k in key)
-        entry = {"shape": shape, "calls": rec.n[(name, key)],
-                 "max_abs_err": err, "ms": time_ms(lambda: fn(*args), 7),
-                 "plain_ms": plain_once, "bound_ms": max(t_bytes, t_ops),
-                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        log(f"{name} {shape}: {'equal to' if err == 0 else 'DIFFERS from'} "
-            f"plain; kernel {entry['ms']:.4f} ms, plain {plain_once:.1f} ms "
-            f"(one cold call), bound {entry['bound_ms']:.4f} ms "
-            f"({entry['bound_by']})")
-        if name == "scale_reduce":      # latency-bound: its own floor
-            entry["serial_steps"] = serial_steps(args)
-            entry["us_per_step"] = entry["ms"] * 1e3 / entry["serial_steps"]
-            log(f"scale_reduce {shape}: {entry['serial_steps']} dependent "
-                f"steps in series, {entry['us_per_step']:.3f} us each")
-        records.setdefault(name, []).append((entry, args))
+    records = hold_to_twins(rec, wrappers, plains, imad_rate, failures)
     phases["kernel checks"] = time.perf_counter() - t_check
     line = []
     for name in wrappers:
@@ -649,9 +783,10 @@ def main(argv) -> int:
         if not shapes:
             failures.append(f"{name}: no call recorded on the main path")
             continue
-        top, args = shapes[0]
+        top, (args, kw) = shapes[0]
         if top["plain_ms"] < 2000:          # warm plain time where it is short
-            top["plain_ms"] = time_ms(lambda: plains[name](*args), 3)
+            kw1 = fresh(kw)
+            top["plain_ms"] = time_ms(lambda: plains[name](*args, **kw1), 3)
         # the recorded run's device time of this kernel, from its trace,
         # against every call's bound on that call's own inputs
         calls = sum(e["calls"] for e, _ in shapes)
@@ -678,7 +813,10 @@ def main(argv) -> int:
     else:
         log(f"inv_batch of {inv['elements']} elements: "
             f"{inv['device_ms']:.4f} ms of device time in "
-            f"{inv['launches']} launches {inv['by_kernel']}")
+            f"{inv['launches']} launches {inv['by_kernel']}; traced "
+            f"{inv['traced_launches']}, counted {inv['wrapper_launches']}; "
+            f"other {inv['other']}")
+        failures += inv_batch_faults(inv)
     print(json.dumps({"card": card, "phases_s": phases,
                       "profile": profile}), flush=True)
     print(json.dumps({"kernels": line, "inv_batch": inv,

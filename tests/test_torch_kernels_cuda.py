@@ -119,6 +119,7 @@ def test_binop_broadcast_layouts(dev, op, layout):
     assert mulmod.OPERAND_COPIES == before
 
 
+@pytest.mark.parametrize("reverse", [False, True], ids=["prefix", "suffix"])
 @pytest.mark.parametrize("F", [FR, FQ], ids=["fr", "fq"])
 @pytest.mark.parametrize("W,S", [
     (2048, 4), (96, 7), (1, 5),
@@ -126,16 +127,57 @@ def test_binop_broadcast_layouts(dev, op, layout):
     (4, 2560), (3, 4672),       # keygen's selectors, SHPLONK's inversion
     (5, 1000), (7, 1500),       # a chunk not filled; one and a half chunks
     (2048, 1), (3, 1024)])      # a run an element; exactly one chunk a run
-def test_chain_cumprod(dev, F, W, S):
+def test_chain_cumprod(dev, F, W, S, reverse):
     x = _elements(F, W * S, 75)
-    _same(mulmod.chain_cumprod(F, x.to(dev), W),
-          mulmod.chain_cumprod_plain(F, x, W))
+    want = mulmod.chain_cumprod_plain(F, x, W, reverse)
+    _same(mulmod.chain_cumprod(F, x.to(dev), W, reverse=reverse), want)
+    _same(mulmod.chain_cumprod_plain(F, x.to(dev), W, reverse), want)
 
 
-@pytest.mark.parametrize("m", [1, 7, 256, 1000, 2048])
-def test_cumprod_tile(dev, m):
-    x = _elements(FQ, m, 76)
-    _same(mulmod.cumprod_tile(FQ, x.to(dev)), mulmod.cumprod_tile_plain(FQ, x))
+@pytest.mark.parametrize("reverse", [False, True], ids=["prefix", "suffix"])
+@pytest.mark.parametrize("exclusive", [False, True], ids=["incl", "excl"])
+@pytest.mark.parametrize("m,stride,offset", [
+    (1, 1, 0), (7, 1, 0), (256, 1, 0), (1000, 1, 0), (2048, 1, 0),
+    (2048, 7, 6), (2048, 7, 0),  # run totals of a chain of S = 7, both ways
+    (7, 3, 2), (1000, 5, 4), (65, 2, 1)])
+def test_cumprod_tile(dev, m, stride, offset, reverse, exclusive):
+    x = _elements(FQ, offset + (m - 1) * stride + 1 + stride // 2, 76)
+    kw = dict(m=m, stride=stride, offset=offset, reverse=reverse,
+              exclusive=exclusive)
+    want = mulmod.cumprod_tile_plain(FQ, x, **kw)
+    _same(mulmod.cumprod_tile(FQ, x.to(dev), **kw), want)
+    _same(mulmod.cumprod_tile_plain(FQ, x.to(dev), **kw), want)  # the twin
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_cumprod_tile_cluster_sizes(dev, monkeypatch, cluster):
+    """Every cluster size the layout can pick, at the path's m = 2048 (16
+    blocks is a non-portable size) and at a ragged m."""
+    monkeypatch.setattr(mulmod, "TILE_CLUSTER", cluster)
+    assert mulmod.tile_layout(2048)[0] == cluster
+    for m in (2048, 1500):
+        x = _elements(FR, 3 * m, 77)
+        for reverse in (False, True):
+            kw = dict(m=m, stride=3, offset=2, reverse=reverse,
+                      exclusive=True)
+            _same(mulmod.cumprod_tile(FR, x.to(dev), **kw),
+                  mulmod.cumprod_tile_plain(FR, x, **kw))
+
+
+@pytest.mark.parametrize("n", [2048 * 5, 2048 * 5 + 3, 1000])
+def test_inv_batch_and_cumprod_incl(dev, n):
+    """The prefix and suffix products and inv_batch on the card (kernels
+    4, 5 and 1 writing into their buffers) against the plain path."""
+    x = _elements(FR, n, 78)
+    x[0] = FR.from_ints(5)                      # inv_batch needs nonzero
+    xd = x.to(dev)
+    for reverse in (False, True):
+        _same(FR.cumprod_incl(xd, reverse=reverse),
+              FR.cumprod_incl(x, reverse=reverse))
+    _same(FR.inv_batch(xd), FR.inv_batch(x))
+    out = torch.empty((n, 8), dtype=torch.int32, device=dev)
+    assert FR.mul(xd, xd, out=out) is out
+    _same(out, FR.mul(x, x))
 
 
 @pytest.mark.parametrize("n,T", [(2, 2), (64, 16), (4096, 2048), (4096, 4096)])
@@ -238,3 +280,12 @@ def test_wrappers_reject_bad_input(dev):
     with pytest.raises(ValueError):
         mulmod.mulmod(FR, torch.zeros((4, 7), dtype=torch.int32, device=dev),
                       torch.zeros((4, 7), dtype=torch.int32, device=dev))
+    x = torch.zeros((48, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):              # a stride past the tensor
+        mulmod.cumprod_tile(FR, x, 7, stride=8, offset=0)
+    with pytest.raises(ValueError):              # more than one call holds
+        mulmod.cumprod_tile(FR, torch.zeros((4096, 8), dtype=torch.int32,
+                                            device=dev))
+    with pytest.raises(ValueError):              # an out of the wrong shape
+        mulmod.mulmod(FR, x, x, out=torch.empty((47, 8), dtype=torch.int32,
+                                                device=dev))

@@ -26,18 +26,24 @@
 // The inclusive prefix product of n elements is three launches (the
 // caller, Field.cumprod_incl, chains them): chain_cumprod gives the local
 // products of W runs of S = n/W contiguous elements; cumprod_tile scans
-// the W run totals in one block; mulmod then multiplies each run by the
-// exclusive product of the runs before it. The TPU kernel carries its
-// accumulator across sequential grid steps; chain_cumprod is a segmented
-// scan with a block per run instead (see its kernel).
+// the W run totals, read in place at a stride of S, into the exclusive
+// product of the runs before each run; mulmod then multiplies each run by
+// it. The suffix product is the same three launches walking the column
+// from its end: the loads and stores of chain_cumprod and cumprod_tile
+// mirror their indices, so nothing is flipped or copied. The TPU kernel
+// carries its accumulator across sequential grid steps; chain_cumprod is
+// a segmented scan with a block per run instead, and cumprod_tile a scan
+// spread over a thread-block cluster (see their kernels).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "field.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileThreads = 256;
 
 __device__ __forceinline__ void load8(const uint4* p, int64_t i, uint32_t x[8]) {
   uint4 a0 = p[2 * i], a1 = p[2 * i + 1];
@@ -84,7 +90,11 @@ binop_kernel(const uint4* __restrict__ a, const uint4* __restrict__ b,
 }
 
 // chain_cumprod: a segmented inclusive product scan whose segments are the
-// runs. o[e] = x[l·S] · … · x[e] for e in run l = [l·S, (l+1)·S).
+// runs. o[e] = x[l·S] · … · x[e] for e in run l = [l·S, (l+1)·S); with
+// `rev`, o[e] = x[e] · … · x[(l+1)·S − 1], and the run's total sits at its
+// head. The kernel walks logical element e, which is element e of the
+// column, or element W·S − 1 − e with `rev`: only the loads and stores
+// mirror their index, the chunks, scans and walks stay the same.
 //
 // Bound on the H100: the multiply rate. The work is one product per
 // element that does not start a run (n − W), ~264 32-bit multiply results
@@ -145,7 +155,7 @@ __device__ __forceinline__ void seg_mul(const uint32_t a[8], bool ah,
 template <class M>
 __global__ void __launch_bounds__(kChainThreads)
 chain_cumprod_kernel(const uint4* __restrict__ x, uint4* __restrict__ o,
-                     int64_t W, int64_t S, int64_t R) {
+                     int64_t W, int64_t S, int64_t R, int rev) {
   __shared__ uint32_t wv[kChainWarps][8];  // warp totals
   __shared__ bool wh[kChainWarps];
   __shared__ uint32_t pv[kChainWarps + 1][8];  // exclusive prefix per warp,
@@ -153,6 +163,8 @@ chain_cumprod_kernel(const uint4* __restrict__ x, uint4* __restrict__ o,
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int64_t r0 = (int64_t)blockIdx.x * R;
   const int64_t e_end = (r0 + R < W ? r0 + R : W) * S;
+  const int64_t mirror = W * S - 1;     // logical e <-> element mirror − e
+  auto at = [&](int64_t e) { return rev ? mirror - e : e; };
   uint32_t carry[8];
   M::one(carry);                  // the block starts at a run head
   for (int64_t base = r0 * S; base < e_end; base += kChunk) {
@@ -166,7 +178,7 @@ chain_cumprod_kernel(const uint4* __restrict__ x, uint4* __restrict__ o,
     bool h = false;
     int64_t pos = pos0;
     for (int j = 0; j < cnt; ++j) {
-      load8(x, e0 + j, xv);
+      load8(x, at(e0 + j), xv);
       if (j == 0 || pos == 0) {
         copy8(v, xv);
       } else {
@@ -229,70 +241,165 @@ chain_cumprod_kernel(const uint4* __restrict__ x, uint4* __restrict__ o,
     copy8(carry, pv[kChainWarps]);
     pos = pos0;
     for (int j = 0; j < cnt; ++j) {
-      load8(x, e0 + j, xv);
+      load8(x, at(e0 + j), xv);
       if (pos == 0) {
         copy8(acc, xv);
       } else {
         zk::mont_mul<M>(acc, xv, r);
         copy8(acc, r);
       }
-      store8(o, e0 + j, acc);
+      store8(o, at(e0 + j), acc);
       if (++pos == S) pos = 0;
     }
   }
 }
 
-// Inclusive prefix product of m elements in one block: each thread walks a
-// run of ceil(m / threads) elements, the run totals are scanned
-// Hillis–Steele in shared memory, and each run is then multiplied by the
-// product of the runs before it.
+// cumprod_tile: the prefix product of m ≤ kTileMax elements read in place
+// at a stride: logical element i is x[offset + i·stride], or, with `rev`,
+// x[offset + (m − 1 − i)·stride]; output i (inclusive: the product of
+// logical elements 0..i; exclusive: 0..i − 1, 1 for i = 0) is written at
+// o[i], or o[m − 1 − i] with `rev`. So one launch gives the prefix or the
+// suffix products of a short column, or the carries of the chained
+// prefix product: the exclusive products of the run totals that
+// chain_cumprod leaves at a stride of S in its output, with no gather,
+// flip or concatenation around it.
+//
+// Bound on the H100: the latency of its chain of dependent products. The
+// path scans m = 2048 totals 42 times; the bytes (64 KB) and the 2,047
+// products are nothing to the card, but a scan puts ~log2(m) products in
+// series and one warp alone takes ~0.43 µs a product (tools/scan_probe.py).
+// The design keeps that chain short and spreads the products over several
+// SMs, instead of one block walking runs and scanning its run totals
+// Hillis–Steele through shared memory (~24 products in series, ~5,600 on
+// one SM):
+// - Two elements a thread (kTilePer), at most 32 warps a call, so one
+//   warp 0 can scan every warp total of the call on its lanes. The
+//   warps form a thread-block cluster of C blocks (cudaLaunchKernelEx
+//   with a cluster dimension): at m = 2048, 1024 threads, C blocks of
+//   1024 / C threads each on an SM of its own.
+// - Each thread multiplies its two elements (1 product in series); each
+//   warp scans its 32 lane products with shuffles of the 8 words (5);
+//   warp 0 of each block reads the call's ≤ 32 warp totals from the
+//   cluster's blocks through distributed shared memory, scans them (≤ 5)
+//   and hands each warp of its block the product of the warps before it;
+//   each thread then multiplies that by its two local prefixes, which it
+//   formed before the barrier (1, two independent products). 12 products
+//   in series, and 1/C of the call's products on each SM.
+// Measured on an H100 (tools/scan_probe.py; PERF.md): 13.4–13.8 µs at
+// m = 2048 on 8 or 16 blocks, 15.0 on 4, 20.0 on 2, 30.4 on 1, against
+// 12 × 0.436 µs = 5.2 µs for the chain. A warp issues 14 products on the
+// path (its local prefix before the cluster barrier, its two outputs one
+// after the other), and the launch, the first loads and the barriers take
+// the rest.
+// - Threads past m hold the field's 1, which multiplies exactly, so no
+//   flag rides along the scan.
+// Every product is canonical and the product commutes, so the result does
+// not depend on this association: the plain twin scans its own way.
+constexpr int kTilePer = 2;                        // elements a thread
+constexpr int kTileMaxWarps = 32;                  // warps of a call
+constexpr int64_t kTileMax = kTilePer * 32 * kTileMaxWarps;
+
 template <class M>
-__global__ void __launch_bounds__(kTileThreads)
+__device__ __forceinline__ void tile_load(const uint4* __restrict__ x,
+                                          int64_t i, int64_t m,
+                                          int64_t stride, int64_t offset,
+                                          int rev, uint32_t r[8]) {
+  if (i < m)
+    load8(x, offset + (rev ? m - 1 - i : i) * stride, r);
+  else
+    M::one(r);
+}
+
+template <class M>
+__global__ void __launch_bounds__(32 * kTileMaxWarps)
 cumprod_tile_kernel(const uint4* __restrict__ x, uint4* __restrict__ o,
-                    int64_t m) {
-  __shared__ uint32_t sv[8 * kTileThreads];
-  const int t = threadIdx.x, nthr = blockDim.x;
-  const int64_t run = (m + nthr - 1) / nthr;
-  const int64_t e0 = t * run;
-  const int64_t e1 = e0 + run < m ? e0 + run : m;
-  uint32_t acc[8], v[8], r[8];
-  M::one(acc);
-  for (int64_t e = e0; e < e1; ++e) {
-    load8(x, e, v);
-    zk::mont_mul<M>(acc, v, r);
+                    int64_t m, int64_t stride, int64_t offset, int rev,
+                    int excl) {
+  __shared__ uint32_t tv[kTileMaxWarps][8];  // this block's warp totals
+  __shared__ uint32_t xv[kTileMaxWarps][8];  // product of the warps before
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int bw = blockDim.x >> 5;              // warps a block
+  const int64_t i0 =
+      ((int64_t)rank * blockDim.x + threadIdx.x) * kTilePer;
+  uint32_t v[8], u[8], r[8];
+  // 1. the product of this thread's two elements
+  tile_load<M>(x, i0, m, stride, offset, rev, v);
+  tile_load<M>(x, i0 + 1, m, stride, offset, rev, u);
+  zk::mont_mul<M>(v, u, r);
+  copy8(v, r);
+  // 2. inclusive scan of the warp's 32 products
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i] = r[i];
-    store8(o, e, acc);
-  }
+  for (int d = 1; d < 32; d <<= 1) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) sv[8 * t + i] = acc[i];
-  __syncthreads();
-  for (int d = 1; d < nthr; d <<= 1) {
-    if (t >= d) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = sv[8 * (t - d) + i];
+    for (int i = 0; i < 8; ++i) u[i] = __shfl_up_sync(0xFFFFFFFFu, v[i], d);
+    if (lane >= d) {
+      zk::mont_mul<M>(u, v, r);
+      copy8(v, r);
     }
-    __syncthreads();
-    if (t >= d) {
-      zk::mont_mul<M>(v, acc, r);
+  }
+  if (lane == 31) copy8(tv[warp], v);
+  // the products of the warp's elements before each of this thread's two
+  // (a before the first, b before the second for an exclusive scan; a
+  // through the first, b through the second for an inclusive one)
+  uint32_t a[8], b[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        acc[i] = r[i];
-        sv[8 * t + i] = r[i];
+  for (int i = 0; i < 8; ++i) a[i] = __shfl_up_sync(0xFFFFFFFFu, v[i], 1);
+  if (lane == 0) M::one(a);
+  tile_load<M>(x, i0, m, stride, offset, rev, u);
+  zk::mont_mul<M>(a, u, r);                    // through the first
+  if (excl) {
+    copy8(b, r);
+  } else {
+    copy8(a, r);
+    copy8(b, v);
+  }
+  cluster.sync();
+  // 3. warp 0 of each block: every warp total of the call, scanned; lane k
+  //    of the block's warps gets the product of the call's warps before it
+  if (warp == 0) {
+    const int nw = C * bw;
+    uint32_t w[8];
+    if (lane < nw) {
+      const uint32_t* t = cluster.map_shared_rank(&tv[0][0], lane / bw);
+      copy8(w, t + 8 * (lane % bw));
+    } else {
+      M::one(w);
+    }
+#pragma unroll 1
+    for (int d = 1; d < nw; d <<= 1) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        u[i] = __shfl_up_sync(0xFFFFFFFFu, w[i], d);
+      if (lane >= d) {
+        zk::mont_mul<M>(u, w, r);
+        copy8(w, r);
       }
     }
-    __syncthreads();
-  }
-  if (t > 0) {
-    uint32_t carry[8];
+    const int g = rank * bw + lane;            // the call's warp g
 #pragma unroll
-    for (int i = 0; i < 8; ++i) carry[i] = sv[8 * (t - 1) + i];
-    for (int64_t e = e0; e < e1; ++e) {
-      load8(o, e, v);
-      zk::mont_mul<M>(carry, v, r);
-      store8(o, e, r);
-    }
+    for (int i = 0; i < 8; ++i)
+      u[i] = __shfl_sync(0xFFFFFFFFu, w[i], g > 0 ? (g - 1) & 31 : 0);
+    if (g == 0) M::one(u);
+    if (lane < bw) copy8(xv[lane], u);
   }
+  // done with the other blocks' shared memory: they may leave after the
+  // wait at the end
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  __syncthreads();
+  // 4. the outputs: the warps before times each local prefix
+  copy8(u, xv[warp]);
+  if (i0 < m) {
+    zk::mont_mul<M>(u, a, r);
+    store8(o, rev ? m - 1 - i0 : i0, r);
+  }
+  if (i0 + 1 < m) {
+    zk::mont_mul<M>(u, b, r);
+    store8(o, rev ? m - 2 - i0 : i0 + 1, r);
+  }
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 unsigned grid(int64_t work, int threads) {
@@ -352,33 +459,63 @@ ZK_BINOP(zk_addmod, kAdd)
 ZK_BINOP(zk_submod, kSub)
 #undef ZK_BINOP
 
-// x, o: W·S elements; run l is elements [l·S, (l+1)·S).
+// x, o: W·S elements; run l is elements [l·S, (l+1)·S), walked from its
+// end with `reverse`.
 extern "C" int zk_chain_cumprod(const void* x, void* o, long long W,
-                                long long S, int field, void* stream) {
+                                long long S, int reverse, int field,
+                                void* stream) {
   if (W <= 0 || S <= 0) return 0;
   const long long R = S >= kChunk ? 1 : (kChunk / S < W ? kChunk / S : W);
   const unsigned blocks = (unsigned)((W + R - 1) / R);
   cudaStream_t s = (cudaStream_t)stream;
   if (field == 0)
     chain_cumprod_kernel<zk::Fr><<<blocks, kChainThreads, 0, s>>>(
-        (const uint4*)x, (uint4*)o, W, S, R);
+        (const uint4*)x, (uint4*)o, W, S, R, reverse);
   else
     chain_cumprod_kernel<zk::Fq><<<blocks, kChainThreads, 0, s>>>(
-        (const uint4*)x, (uint4*)o, W, S, R);
+        (const uint4*)x, (uint4*)o, W, S, R, reverse);
   return (int)cudaGetLastError();
 }
 
-// x, o: m elements, scanned by one block.
+// m elements of x read at offset + i·stride, their prefix products (or,
+// with `reverse`, suffix products; with `exclusive`, each without its own
+// element) written to the m contiguous elements of o. One cluster of
+// `cluster` blocks of `threads` threads (a multiple of 32), two elements a
+// thread: cluster·threads·2 ≥ m and at most 32 warps in all. Above 8
+// blocks the cluster size is non-portable and is allowed first. A cluster
+// launch the card refuses is returned as its error, not run another way.
 extern "C" int zk_cumprod_tile(const void* x, void* o, long long m,
-                               int field, void* stream) {
+                               long long stride, long long offset,
+                               int reverse, int exclusive, int threads,
+                               int cluster, int field, void* stream) {
   if (m <= 0) return 0;
-  const int threads = m < kTileThreads ? (int)m : kTileThreads;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (field == 0)
-    cumprod_tile_kernel<zk::Fr><<<1, threads, 0, s>>>(
-        (const uint4*)x, (uint4*)o, m);
-  else
-    cumprod_tile_kernel<zk::Fq><<<1, threads, 0, s>>>(
-        (const uint4*)x, (uint4*)o, m);
+  if (m > kTileMax || stride < 1 || offset < 0 || threads < 32 ||
+      threads % 32 || cluster < 1 ||
+      cluster * (threads / 32) > kTileMaxWarps ||
+      (long long)cluster * threads * kTilePer < m)
+    return (int)cudaErrorInvalidValue;
+  void (*kernel)(const uint4*, uint4*, int64_t, int64_t, int64_t, int,
+                 int) = field == 0 ? cumprod_tile_kernel<zk::Fr>
+                                   : cumprod_tile_kernel<zk::Fq>;
+  cudaError_t err = cudaSuccess;
+  if (cluster > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, (const uint4*)x, (uint4*)o,
+                           (int64_t)m, (int64_t)stride, (int64_t)offset,
+                           reverse, exclusive);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

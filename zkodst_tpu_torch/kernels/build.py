@@ -33,8 +33,8 @@ SIGNATURES = {
         "zk_mulmod": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _I, _P],
         "zk_addmod": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _I, _P],
         "zk_submod": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _I, _P],
-        "zk_chain_cumprod": [_P, _P, _LL, _LL, _I, _P],
-        "zk_cumprod_tile": [_P, _P, _LL, _I, _P],
+        "zk_chain_cumprod": [_P, _P, _LL, _LL, _I, _I, _P],
+        "zk_cumprod_tile": [_P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _I, _P],
     },
     "ec": {
         "zk_ec_add": [_P, _P, _P, _LL, _LL, _P],

@@ -11,9 +11,9 @@ The plain arithmetic (``*64`` methods) works on ``int64`` tensors holding
 32-bit limb values, because CPU ``torch.uint32`` has no add, ``>>`` or
 ``<``; the Montgomery product splits operands into 16-bit halves so every
 partial product and column sum stays exact in int64. :meth:`Field.mul`,
-:meth:`Field.add`, :meth:`Field.sub` and :meth:`Field.cumprod_incl` go
-through the wrappers of kernels/mulmod.py, which launch the CUDA kernels for tensors on the
-card.
+:meth:`Field.add`, :meth:`Field.sub`, :meth:`Field.cumprod_incl` and
+:meth:`Field.inv_batch` go through the wrappers of kernels/mulmod.py, which
+launch the CUDA kernels for tensors on the card.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ L = 8                   # 32-bit limbs per element
 MASK32 = 0xFFFFFFFF
 MASK16 = 0xFFFF
 MUL_CHUNK = 1 << 18     # elements per plain Montgomery product pass
+CHAIN_W = 2048          # runs of a chained prefix product (at most 2048)
 
 
 def ints_to_limbs(xs) -> np.ndarray:
@@ -126,6 +127,12 @@ def _carry(t: torch.Tensor, bits: int) -> torch.Tensor:
     return t
 
 
+def _scan_length(n: int, W: int) -> int:
+    """Elements of cumprod_incl's scan of n: n, or n rounded up to a
+    multiple of W where the scan is chained."""
+    return n if n <= W else -(-n // W) * W
+
+
 class Field:
     """Static per-modulus constants and the limb arithmetic."""
 
@@ -167,11 +174,12 @@ class Field:
         return torch.from_numpy(a.view(np.int32).copy()).to(device)
 
     # -- ring ops on int32 tensors -------------------------------------------
-    def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """Montgomery product a·b·2^-256 (kernel 1 on the card)."""
+    def mul(self, a: torch.Tensor, b: torch.Tensor, out=None) -> torch.Tensor:
+        """Montgomery product a·b·2^-256 (kernel 1 on the card), into
+        `out` where given."""
         from ..kernels.mulmod import mulmod
 
-        return mulmod(self, a, b)
+        return mulmod(self, a, b, out=out)
 
     def add(self, a, b):
         """(a + b) mod p (kernel 2 on the card)."""
@@ -200,42 +208,59 @@ class Field:
         """Inverse of every element of an (n, 8) column (Montgomery's
         trick): prefix and suffix products, one inverse of the total, then
         inv_i = prefix_{<i} · suffix_{>i} · total⁻¹. Every element must be
-        nonzero."""
-        pre = self.cumprod_incl(a)
-        suf = self.cumprod_incl(a, reverse=True)
-        one = self.const(self.ONE, a.device)[None]
-        pre_exc = torch.cat([one, pre[:-1]])
-        suf_exc = torch.cat([suf[1:], one])
-        return self.mul(self.mul(pre_exc, suf_exc), self.inv(pre[-1]))
+        nonzero. Each product is scanned into a buffer one element longer
+        than its scan, with 1 at the far end, so the exclusive products
+        and the total are views of it."""
+        n = a.shape[0]
+        N = _scan_length(n, CHAIN_W)
+        one = torch.from_numpy(self.ONE.view(np.int32))
+        pre = torch.empty((N + 1, L), dtype=torch.int32, device=a.device)
+        pre[0] = one                            # pre[i] = a[0] · … · a[i−1]
+        self._scan_into(a, pre[1:], False, CHAIN_W)
+        suf = torch.empty((N + 1, L), dtype=torch.int32, device=a.device)
+        suf[N] = one                            # suf[i] = a[i] · … · a[n−1]
+        self._scan_into(a, suf[:N], True, CHAIN_W)
+        return self.mul(self.mul(pre[:n], suf[1:n + 1]), self.inv(pre[n]))
 
-    def cumprod_incl(self, a, reverse: bool = False, W: int = 2048):
+    def cumprod_incl(self, a, reverse: bool = False, W: int = CHAIN_W):
         """Inclusive cumulative product along axis 0 of an (n, 8) column
         (suffix products with reverse=True).
 
-        Up to W elements: one tile scan (kernel 5). Longer: the column,
-        padded with ones to a multiple of W, is cut into W runs of S
-        contiguous elements; each run's local products (kernel 4), a tile
-        scan of the W run totals (kernel 5), and each run times the product
-        of the runs before it (kernel 1), as the reference's chained TPU
-        path (``zkodst_tpu/ops/field.py:342-357``)."""
+        Up to W elements: one tile scan (kernel 5). Longer: the column is
+        cut into W runs of S contiguous elements (padded with ones at its
+        end to a multiple of W, a copy only for such a ragged column);
+        each run's local products (kernel 4), a tile scan of the W run
+        totals read in place into each run's carry, the product of the runs
+        before it (kernel 5), and each run times its carry (kernel 1), as
+        the reference's chained TPU path
+        (``zkodst_tpu/ops/field.py:342-357``). With reverse=True kernels 4
+        and 5 walk the column from its end, and each run's carry is the
+        product of the runs after it: nothing is flipped."""
+        n = a.shape[0]
+        out = torch.empty((_scan_length(n, W), L), dtype=torch.int32,
+                          device=a.device)
+        return self._scan_into(a, out, reverse, W)[:n]
+
+    def _scan_into(self, a, out, reverse: bool, W: int):
+        """The inclusive products of cumprod_incl, written into `out`
+        (_scan_length(n, W) contiguous elements); returns `out`."""
         from ..kernels.mulmod import chain_cumprod, cumprod_tile
 
         n = a.shape[0]
-        x = a.flip(0) if reverse else a
         if n <= W:
-            out = cumprod_tile(self, x)
-        else:
-            S = -(-n // W)
-            if S * W != n:
-                pad = self.const(self.ONE, a.device).expand(S * W - n, L)
-                x = torch.cat([x, pad])
-            local = chain_cumprod(self, x.contiguous(), W)
-            incl = cumprod_tile(self, local[S - 1::S].contiguous())
-            one = self.const(self.ONE, a.device)[None]
-            carry = torch.cat([one, incl[:-1]])
-            out = self.mul(local.view(W, S, L), carry[:, None, :])
-            out = out.reshape(S * W, L)[:n]
-        return out.flip(0) if reverse else out
+            return cumprod_tile(self, a, reverse=reverse, out=out)
+        S = out.shape[0] // W
+        x = a
+        if S * W != n:
+            pad = self.const(self.ONE, a.device).expand(S * W - n, L)
+            x = torch.cat([a, pad])
+        local = chain_cumprod(self, x, W, reverse=reverse)
+        carry = cumprod_tile(self, local, W, stride=S,
+                             offset=0 if reverse else S - 1,
+                             reverse=reverse, exclusive=True)
+        self.mul(local.view(W, S, L), carry[:, None, :],
+                 out=out.view(W, S, L))
+        return out
 
     def sum(self, a: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Σ along `dim` by halving: the first half plus the second

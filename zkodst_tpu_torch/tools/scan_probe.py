@@ -16,6 +16,11 @@
    each chunk staged through shared memory by coalesced ``cp.async``
    copies, with one or two chunk buffers (``cuda/csrc/probe_mulmod.cu``);
    the outputs must be equal.
+4. ``cumprod_tile`` at m = 2048 on a cluster of 1, 2, 4, 8 and 16 blocks:
+   a contiguous (2048, 8) column, and the path's call (the exclusive
+   products of the run totals of a chain of 73·2^17 elements, read at a
+   stride), both directions, each held to its twin; and the chain floor,
+   its products in series times one warp's time per product (1.).
 
 The probe sources are built here with nvcc, in parallel. Prints a line
 per reading and, last, one JSON object of them all with the card's name
@@ -161,6 +166,43 @@ def staging(lib, g) -> list:
     return recs
 
 
+def tile_clusters(g, us_per_product: float) -> dict:
+    """cumprod_tile ms at m = 2048 on each cluster size, and its floor."""
+    W, S = 2048, 73 << 17 >> 11
+    col = _field_words(g, (W,), FR)
+    local = _field_words(g, (W * S,), FR)
+    calls = {"column": (col, {}),
+             "path_prefix": (local, dict(m=W, stride=S, offset=S - 1,
+                                         exclusive=True)),
+             "path_suffix": (local, dict(m=W, stride=S, offset=0,
+                                         reverse=True, exclusive=True))}
+    recs = []
+    saved = mulmod.TILE_CLUSTER
+    try:
+        for cluster in (1, 2, 4, 8, 16):
+            mulmod.TILE_CLUSTER = cluster
+            rec = {"cluster": cluster,
+                   "threads": mulmod.tile_layout(W)[1]}
+            for name, (x, kw) in calls.items():
+                got = mulmod.cumprod_tile(FR, x, **kw)
+                if not torch.equal(got.cpu(), mulmod.cumprod_tile_plain(
+                        FR, x, **kw).cpu()):
+                    raise RuntimeError(f"cumprod_tile {name} differs from "
+                                       f"its twin at cluster {cluster}")
+                rec[f"{name}_ms"] = _time_ms(
+                    lambda: mulmod.cumprod_tile(FR, x, **kw))
+            print(json.dumps(rec), flush=True)
+            recs.append(rec)
+    finally:
+        mulmod.TILE_CLUSTER = saved
+    chain = mulmod.tile_serial_products(W)
+    floor = {"products_in_series": chain,
+             "us_per_product": us_per_product,
+             "chain_floor_ms": chain * us_per_product / 1e3}
+    print(json.dumps(floor), flush=True)
+    return {"by_cluster": recs, **floor}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("scan_probe: CUDA is not available", file=sys.stderr)
@@ -172,8 +214,10 @@ def main() -> int:
     libs = _probe_libs()
     g = torch.Generator(device="cuda")
     g.manual_seed(11)
-    print(json.dumps({"card": card,
-                      "latency": latency(libs["probe_ec"], g),
+    lat = latency(libs["probe_ec"], g)
+    print(json.dumps({"card": card, "latency": lat,
+                      "cumprod_tile": tile_clusters(
+                          g, lat["mul_1_chains_us"]),
                       "seg_scan_tiles": layouts(g),
                       "chain_cumprod": staging(libs["probe_mulmod"], g)}),
           flush=True)
