@@ -28,9 +28,25 @@ operands the binop wrappers copied whole on the main path, and, last,
 their twins in both directions (and kernel 5 inclusive and exclusive) at
 every shape the path gave them.
 The ``inv_batch`` runs in a process of its own (``--inv-batch`` does only
-that and prints its JSON). Any failure exits non-zero before the last
-line. It imports nothing of JAX or
-zkodst_tpu and writes nothing outside the kernel build directories.
+that and prints its JSON).
+
+Then the rest of the single-device API, each phase with the kernel counts
+set to 0 just before it and read just after, each printing a JSON line of
+its own: ``mock`` (the flagship witness satisfies the circuit; with one
+``w`` cell and one ``pub`` output cell flipped it fails a gate and a copy;
+its wall time, launches and peak memory; its binop calls held to their
+twins), ``chain`` (a 3-block message through the gadget, proved with the
+flagship key, verified, its chain read back from the proved public column
+and a forged middle block rejected), ``halo2ce`` (the flagship proved and
+verified in that transcript mode, rejected with a point byte flipped, its
+sha256), ``cache`` (two setups from one cache directory: the golden vk
+digest both times, no file written by the second, the golden proof from
+it), ``native_verify`` (the golden proof through the native verifier core
+and through Python ints, three runs each) and ``cli`` (``python -m
+zkodst_tpu_torch prove`` and ``vectors`` in subprocesses). Any failure
+exits non-zero before the last line. It imports nothing of JAX or
+zkodst_tpu and writes nothing outside the kernel build directories and a
+temporary cache directory that it removes.
 """
 
 from __future__ import annotations
@@ -45,11 +61,13 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "flagship_proof_v1.json")
 K, N_INST, SRS_SEED, BLIND_SEED = 17, 37, 0, 2
+CHAIN_MSG, CHAIN_SEED = b"x" * 300, 9     # 3 blocks (128 + 128 + 44 bytes)
 PROOF_BYTES = 4480     # 14 advice, 8 A'/S', 12 Z, 4 h points, 100
                        # evaluations, W and W'
 SCALAR_AT = 32 * (14 + 8 + 12 + 4)  # the first evaluation
@@ -94,8 +112,12 @@ REPLACES = {
 }
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"# {msg}", flush=True)
+    """A comment line, stamped with the seconds since the script began."""
+    print(f"# [{time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -511,6 +533,272 @@ def hold_to_twins(rec, wrappers, plains, imad_rate, failures) -> dict:
     return records
 
 
+def idle_kernels(launches, names=None) -> list:
+    """The kernels of `names` (every kernel when None) that a path did not
+    launch."""
+    return [k for k in (names or launches) if not launches[k]]
+
+
+def phase_line(name, record, faults, failures) -> None:
+    """Print a phase's JSON line and add its faults to `failures`."""
+    print(json.dumps({"phase": name, "ok": not faults, **record}),
+          flush=True)
+    failures += [f"{name}: {f}" for f in faults]
+
+
+def vk_digest(vk) -> str:
+    from zkodst_tpu_torch.proof.transcript import Blake2bWrite
+
+    tw = Blake2bWrite()
+    vk.hash_into(tw)
+    return hex(tw.squeeze_challenge())
+
+
+def flipped(proof: bytes, at: int) -> bytes:
+    bad = bytearray(proof)
+    bad[at] ^= 1
+    return bytes(bad)
+
+
+def mock_phase(pr, inputs, wrappers, plains, imad_rate):
+    """The flagship witness through the mock checker on the card, then the
+    same with one ``w`` cell and one ``pub`` output cell flipped; the
+    check's binop calls held to their twins. Returns (record, faults)."""
+    import torch
+
+    from zkodst_tpu_torch import kernels
+    from zkodst_tpu_torch.circuit import blake2f as bc
+    from zkodst_tpu_torch.circuit import mock
+    from zkodst_tpu_torch.kernels import mulmod as kmul
+
+    faults = []
+    circ = pr.built.circ
+    adv, inst = pr.built.witness(*inputs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    fails = mock.check(circ, adv, inst, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    if fails:
+        faults.append(f"the flagship witness fails {[str(f) for f in fails]}")
+    idle = idle_kernels(launches, ("mulmod", "addmod", "submod"))
+    if idle:
+        faults.append(f"kernels not launched: {idle}")
+    rows = torch.nonzero(adv["w"][:, 0]).flatten()
+    row = int(rows[len(rows) // 2])
+    bad_adv = dict(adv, w=adv["w"].clone())
+    bad_adv["w"][row, 0] ^= 1
+    pub = inst["pub"].clone()
+    pub[bc.ROW_OUT, 0] ^= 1
+    bad = mock.check(circ, bad_adv, {"pub": pub}, "cuda")
+    gate_rows = {int(r) for f in bad if f.kind == "gate" for r in f.rows}
+    copy_rows = {int(r) for f in bad if f.kind == "copy" for r in f.rows}
+    if {f.kind for f in bad} != {"gate", "copy"} or row not in gate_rows \
+            or bc.ROW_OUT not in copy_rows:
+        faults.append(f"w[{row}] and pub[{bc.ROW_OUT}] flipped give "
+                      f"{[str(f) for f in bad]}")
+    binops = {name: [(kmul, name)] for name in ("mulmod", "addmod",
+                                                "submod")}
+    with Recorder(binops) as rec:
+        mock.check(circ, adv, inst, "cuda")
+    held = hold_to_twins(rec, wrappers, plains, imad_rate, faults)
+    log(f"mock: {wall:.3f} s, {sum(launches.values())} kernel launches "
+        f"{launches}, peak {peak / 2**20:.0f} MiB above the path's")
+    return {"wall_s": wall, "kernel_launches": launches,
+            "peak_mib": peak / 2**20,
+            "flipped_w_row": row, "flipped_failures": [str(f) for f in bad],
+            "twin_shapes": {k: len(v) for k, v in held.items()}}, faults
+
+
+def chain_phase(pr):
+    """A 3-block message through the gadget, proved with the flagship key
+    and verified; its chain read back from the proved public column.
+    Returns (record, faults)."""
+    import torch
+
+    from zkodst_tpu_torch import gadget, kernels
+    from zkodst_tpu_torch.ops import blake2
+
+    faults = []
+    digest, calls = gadget.Blake2b.digest(CHAIN_MSG)
+    if digest != hashlib.blake2b(CHAIN_MSG).digest() or len(calls) != 3:
+        faults.append(f"gadget: {len(calls)} calls, digest {digest.hex()}")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    proof, inst = pr.prove(*gadget.calls_to_arrays(calls,
+                                                   pad_to=pr.n_inst),
+                           seed=CHAIN_SEED)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    launches = kernels.counts()
+    if idle_kernels(launches):
+        faults.append(f"kernels not launched: {idle_kernels(launches)}")
+    if not pr.verify(inst, proof):
+        faults.append("the verifier rejects the chain's proof")
+    proved = gadget.instance_column_calls(pr.built, inst["pub"], len(calls))
+    if not gadget.check_chain(proved, len(CHAIN_MSG)) \
+            or gadget.chain_digest(proved) != digest:
+        faults.append("the proved public column fails the chain rules")
+    c1 = proved[1]
+    bad_h = tuple(x ^ 1 for x in c1.h)
+    forged = [proved[0], gadget.BlockCall(
+        h=bad_h, m=c1.m, t=c1.t, f=c1.f, h_out=tuple(blake2.blake2f_py(
+            list(bad_h), list(c1.m), c1.t, c1.f))), proved[2]]
+    if gadget.check_chain(forged, len(CHAIN_MSG)):
+        faults.append("a forged middle block passes the chain rules")
+    log(f"chain: 3 blocks proved in {prove_s:.3f} s, {len(proof)} bytes")
+    return {"blocks": len(calls), "digest": digest.hex(),
+            "prove_s": prove_s, "proof_bytes": len(proof),
+            "proof_sha256": hashlib.sha256(proof).hexdigest(),
+            "launches": launches}, faults
+
+
+def halo2ce_phase(pr, inputs):
+    """The flagship proved in halo2ce mode with the golden blind seed,
+    verified in that mode and rejected with a point byte flipped; warm
+    proves of both modes in turns (v1, halo2ce, halo2ce, v1). Returns
+    (record, faults)."""
+    import torch
+
+    from zkodst_tpu_torch import kernels
+
+    faults = []
+    kernels.reset_counts()
+    proof, inst = pr.prove(*inputs, seed=BLIND_SEED,
+                           transcript_mode="halo2ce")
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    if idle_kernels(launches):
+        faults.append(f"kernels not launched: {idle_kernels(launches)}")
+    if len(proof) != PROOF_BYTES:
+        faults.append(f"{len(proof)} bytes")
+    if not pr.verify(inst, proof, "halo2ce"):
+        faults.append("the halo2ce verifier rejects the proof")
+    if pr.verify(inst, flipped(proof, 0), "halo2ce"):
+        faults.append("accepts the proof with byte 0 (a point) flipped")
+    if pr.verify(inst, proof):
+        faults.append("the v1 verifier accepts the halo2ce proof")
+    warm = {"v1": [], "halo2ce": []}
+    for mode in ("v1", "halo2ce", "halo2ce", "v1"):
+        t0 = time.perf_counter()
+        again, _ = pr.prove(*inputs, seed=BLIND_SEED, transcript_mode=mode)
+        torch.cuda.synchronize()
+        warm[mode].append(time.perf_counter() - t0)
+        if mode == "halo2ce" and again != proof:
+            faults.append("a second halo2ce proof differs from the first")
+    sha = hashlib.sha256(proof).hexdigest()
+    log(f"halo2ce: {len(proof)} bytes, sha256 {sha}; warm prove v1 "
+        f"{warm['v1']} s, halo2ce {warm['halo2ce']} s")
+    return {"proof_bytes": len(proof), "proof_sha256": sha,
+            "warm_prove_s": warm, "launches": launches}, faults
+
+
+def native_phase(pr, inst, proof):
+    """The golden proof verified through the native core and through
+    Python ints (three runs each, median), and rejected with a point or a
+    scalar byte flipped. Returns (record, faults)."""
+    from zkodst_tpu_torch.proof import verifier
+
+    faults, times = [], {}
+    for native in (True, False):
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ok = verifier.verify_proof(pr.params, pr.pk.vk, inst, proof,
+                                       native=native)
+            runs.append(time.perf_counter() - t0)
+            if not ok:
+                faults.append(f"native={native} rejects the golden proof")
+        times["native" if native else "python"] = runs
+    for at in (0, SCALAR_AT):
+        if verifier.verify_proof(pr.params, pr.pk.vk, inst,
+                                 flipped(proof, at)):
+            faults.append(f"native accepts byte {at} flipped")
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"verify: native {med['native']:.4f} s, Python ints "
+        f"{med['python']:.4f} s (median of 3; runs {times})")
+    return {"verify_s": times, "median_s": med}, faults
+
+
+def cache_phase(inputs, golden, cache_dir):
+    """Two setups from one cache directory: the golden vk digest both
+    times, no file written by the second, and the golden proof from its
+    key. Returns (record, faults)."""
+    import torch
+
+    from zkodst_tpu_torch import api, kernels
+
+    def listing():
+        return sorted((f, os.stat(os.path.join(cache_dir, f)).st_mtime_ns)
+                      for f in os.listdir(cache_dir))
+
+    faults, setup_s = [], []
+    for i in range(2):
+        if i:
+            kernels.reset_counts()
+        t0 = time.perf_counter()
+        pc = api.setup_blake2f(k=K, n_inst=N_INST, srs_seed=SRS_SEED,
+                               cache_dir=cache_dir, echo=False,
+                               device="cuda")
+        torch.cuda.synchronize()
+        setup_s.append(time.perf_counter() - t0)
+        if vk_digest(pc.pk.vk) != golden["vk_transcript_digest"]:
+            faults.append(f"setup {i + 1}: vk digest differs")
+        if not i:
+            files = listing()
+            del pc
+    if listing() != files:
+        faults.append("the second setup wrote a file")
+    proof, _ = pc.prove(*inputs, seed=BLIND_SEED)
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    if idle_kernels(launches):
+        faults.append(f"kernels not launched: {idle_kernels(launches)}")
+    if proof != bytes.fromhex(golden["proof_hex"]):
+        faults.append("the proof from the cached key is not golden")
+    log(f"cache: setup {setup_s[0]:.3f} s writing, {setup_s[1]:.3f} s "
+        f"reading {[f for f, _ in files]}")
+    return {"setup_s": setup_s, "files": [f for f, _ in files],
+            "launches": launches}, faults
+
+
+def cli_phase(cache_dir):
+    """``python -m zkodst_tpu_torch prove`` (the flagship from the cache)
+    and ``vectors`` on the card, in subprocesses. Returns (record,
+    faults)."""
+    faults, record = [], {}
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    for cmd in (["prove", "--k", str(K), "--instances", str(N_INST),
+                 "--seed", str(BLIND_SEED), "--cache-dir", cache_dir],
+                ["vectors", "--device", "cuda"]):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "zkodst_tpu_torch",
+                              *cmd], cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=900)
+        record[cmd[0]] = {"rc": out.returncode,
+                          "wall_s": time.perf_counter() - t0}
+        lines = out.stdout.strip().splitlines()
+        if out.returncode:
+            faults.append(f"{cmd[0]} exits {out.returncode}: "
+                          f"{out.stderr.strip()[-400:]}")
+        elif cmd[0] == "prove":
+            last = json.loads(lines[-1])
+            record["prove"].update(last)
+            if last != {"proof_bytes": PROOF_BYTES, "verified": True}:
+                faults.append(f"prove prints {last}")
+        else:
+            record["vectors"]["lines"] = lines
+            if any(f"vector {n}: ok" not in lines for n in (4, 5, 6, 7)):
+                faults.append(f"vectors prints {lines}")
+    log(f"cli: {record}")
+    return record, faults
+
+
 def main(argv) -> int:
     import torch
 
@@ -522,8 +810,9 @@ def main(argv) -> int:
         return 1
     sys.path.insert(0, ROOT)
     try:
-        from zkodst_tpu_torch import api, kernels
+        from zkodst_tpu_torch import api, kernels, native
         from zkodst_tpu_torch.circuit import blake2f as bc
+        from zkodst_tpu_torch.circuit import mock
         from zkodst_tpu_torch.kernels import build, ec as kec
         from zkodst_tpu_torch.kernels import mulmod as kmul
         from zkodst_tpu_torch.kernels import ntt as kntt
@@ -531,7 +820,6 @@ def main(argv) -> int:
         from zkodst_tpu_torch.ops import ntt as ontt
         from zkodst_tpu_torch.ops.pyfield import FR
         from zkodst_tpu_torch.proof import keygen, prover, srs, verifier
-        from zkodst_tpu_torch.proof.transcript import Blake2bWrite
     except ImportError as ex:
         print(f"chip_smoke: run from the repository root ({ex})",
               file=sys.stderr)
@@ -567,12 +855,17 @@ def main(argv) -> int:
             elif "registers" in line or "spill" in line:
                 log(f"ptxas {src}: {line.strip()}")
     ptxas = ptxas_table(built.ptxas)
+    t0 = time.perf_counter()
+    native.get_lib()
+    phases["build native"] = time.perf_counter() - t0
+    log(f"phase build native: {phases['build native']:.3f} s (g++, the "
+        "verifier's host core)")
 
     # -- the main path, counted -----------------------------------------------
     kernels.reset_counts()
     t0 = time.perf_counter()
     pr = api.setup_blake2f(k=K, n_inst=N_INST, srs_seed=SRS_SEED,
-                           device="cuda")
+                           echo=False, device="cuda")
     inputs = api.eip152_inputs(N_INST)
     proof, inst = pr.prove(*inputs, seed=BLIND_SEED)
     accepted = pr.verify(inst, proof)
@@ -607,9 +900,7 @@ def main(argv) -> int:
                         "L0(tau)·G")
     else:
         log("SRS: g1[1] = tau·G and g1_lagrange[0] = L0(tau)·G")
-    tw = Blake2bWrite()
-    pr.pk.vk.hash_into(tw)
-    digest = hex(tw.squeeze_challenge())
+    digest = vk_digest(pr.pk.vk)
     if digest != golden["vk_transcript_digest"]:
         failures.append(f"vk transcript digest {digest} != "
                         f"{golden['vk_transcript_digest']}")
@@ -633,9 +924,8 @@ def main(argv) -> int:
         log("verify: the port's verifier accepts the card's proof")
     for what, at in (("a point (the first advice commitment)", 0),
                      ("a scalar (the first evaluation)", SCALAR_AT)):
-        bad = bytearray(proof)
-        bad[at] ^= 1
-        if verifier.verify_proof(pr.params, pr.pk.vk, inst, bytes(bad)):
+        if verifier.verify_proof(pr.params, pr.pk.vk, inst,
+                                 flipped(proof, at)):
             failures.append(f"verify: accepts the proof with a byte of "
                             f"{what} flipped")
         else:
@@ -677,7 +967,8 @@ def main(argv) -> int:
             ("quotient", staged.quotient),
             ("evaluations", staged.evaluations),
             ("multiopen", staged.multiopen),
-            ("verify", lambda: pr.verify(inst, proof))):
+            ("verify", lambda: pr.verify(inst, proof)),
+            ("mock", lambda: mock.check(pr.built.circ, adv, inst, "cuda"))):
         fn()
         torch.cuda.synchronize()
         with tprofile(activities=[ProfilerActivity.CPU,
@@ -776,6 +1067,8 @@ def main(argv) -> int:
     t_check = time.perf_counter()
     records = hold_to_twins(rec, wrappers, plains, imad_rate, failures)
     phases["kernel checks"] = time.perf_counter() - t_check
+    phase_line("mock", *mock_phase(pr, inputs, wrappers, plains, imad_rate),
+               failures)
     line = []
     for name in wrappers:
         shapes = sorted(records.get(name, []),
@@ -817,6 +1110,15 @@ def main(argv) -> int:
             f"{inv['traced_launches']}, counted {inv['wrapper_launches']}; "
             f"other {inv['other']}")
         failures += inv_batch_faults(inv)
+    # -- the rest of the single-device API, each path counted on its own ----
+    phase_line("chain", *chain_phase(pr), failures)
+    phase_line("halo2ce", *halo2ce_phase(pr, inputs), failures)
+    phase_line("native_verify", *native_phase(pr, inst, want_bytes),
+               failures)
+    with tempfile.TemporaryDirectory(prefix="zkodst_cache_") as cache_dir:
+        phase_line("cache", *cache_phase(inputs, golden, cache_dir),
+                   failures)
+        phase_line("cli", *cli_phase(cache_dir), failures)
     print(json.dumps({"card": card, "phases_s": phases,
                       "profile": profile}), flush=True)
     print(json.dumps({"kernels": line, "inv_batch": inv,

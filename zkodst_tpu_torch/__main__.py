@@ -1,0 +1,142 @@
+"""Command line: ``python -m zkodst_tpu_torch <command>``, as
+``python -m zkodst_tpu``, on the card unless ``--device cpu`` is given.
+
+  prove    setup → prove → verify of the EIP-152 vector at the configured
+           degree and instance count; prints the metrics JSON, then
+           ``{"proof_bytes": ..., "verified": ...}``
+  mock     the witness and the constraint check without cryptography
+  vectors  the EIP-152 appendix vectors through the batched ``blake2f``
+
+The reference's ``bench`` command waits for the port's benchmark entry
+(ROADMAP §1 item 2).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--k", type=int, default=None, help="circuit degree "
+                   "(2^k rows; default DEGREE env or 17)")
+    p.add_argument("--instances", type=int, default=None,
+                   help="BLAKE2f instances per proof")
+    p.add_argument("--rounds", type=int, default=12)
+    p.add_argument("--cache-dir", default=".zkodst_cache")
+    p.add_argument("--seed", type=int, default=None,
+                   help="deterministic blinding seed (default: OS entropy)")
+    p.add_argument("--mesh", default=None,
+                   help="mesh shape, e.g. '8' or '2x4' (multi-GPU prover; "
+                        "not ported yet)")
+    p.add_argument("--commitment", default="kzg", choices=("kzg", "ipa"),
+                   help="polynomial commitment scheme: kzg (BN254 + "
+                        "SHPLONK) or ipa (not ported yet)")
+    p.add_argument("--transcript-mode", default="v1",
+                   choices=("v1", "halo2ce"),
+                   help="transcript flavor: v1 (pinned native format) or "
+                        "halo2ce (per-value instance absorption)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (the default) or cpu")
+    p.add_argument("--quiet", action="store_true")
+
+
+def _config(args):
+    from .config import RunConfig
+
+    kw = {}
+    if args.k is not None:
+        kw["k"] = args.k
+    if args.instances is not None:
+        kw["n_inst"] = args.instances
+    if args.mesh:
+        kw["mesh_shape"] = tuple(int(x) for x in args.mesh.split("x"))
+    return RunConfig(rounds=args.rounds, cache_dir=args.cache_dir,
+                     seed=args.seed, echo=not args.quiet,
+                     commitment=args.commitment, device=args.device, **kw)
+
+
+def cmd_prove(args) -> int:
+    from . import api
+
+    cfg = _config(args)
+    pipe = api.setup_blake2f(k=cfg.k, n_inst=cfg.n_inst, rounds=cfg.rounds,
+                             cache_dir=cfg.cache_dir, echo=cfg.echo,
+                             scheme=cfg.commitment, device=cfg.device)
+    h, m, t, f = api.eip152_inputs(pipe.n_inst)
+    mode = args.transcript_mode
+    proof, inst = pipe.prove(h, m, t, f, seed=cfg.seed,
+                             transcript_mode=mode)
+    ok = pipe.verify(inst, proof, transcript_mode=mode)
+    print(pipe.metrics.to_json())
+    print(json.dumps({"proof_bytes": len(proof), "verified": bool(ok)}))
+    return 0 if ok else 1
+
+
+def cmd_mock(args) -> int:
+    from . import api
+    from .circuit import mock
+
+    cfg = _config(args)
+    built = api.blake2f_circuit.Blake2fCircuit(
+        k=cfg.k, n_inst=cfg.n_inst, rounds=cfg.rounds, device=cfg.device)
+    adv, inst = built.witness(*api.eip152_inputs(cfg.n_inst))
+    fails = mock.check(built.circ, adv, inst, built.device)
+    for fl in fails:
+        print(fl, file=sys.stderr)
+    print(json.dumps({"constraints_ok": not fails, "k": cfg.k,
+                      "instances": cfg.n_inst}))
+    return 1 if fails else 0
+
+
+def cmd_vectors(args) -> int:
+    import numpy as np
+    import torch
+
+    from .ops import blake2, u64
+    from .utils.device import resolve
+
+    dev = resolve(args.device)
+
+    def pairs(words):
+        return torch.from_numpy(u64.from_ints(words).astype(np.int64)
+                                ).to(dev)[None]
+
+    bad = 0
+    for v in blake2.EIP152_VECTORS:
+        if "error" in v:
+            try:
+                blake2.eip152_decode(v["input"])
+                bad += 1
+                status = "FAIL (accepted malformed input)"
+            except ValueError:
+                status = "ok (rejected)"
+        elif v["expected"] is None:
+            status = "ok (decode-only)"
+        else:
+            rounds, h, m, t, f = blake2.eip152_decode(v["input"])
+            out = blake2.blake2f(pairs(h), pairs(m), pairs(t),
+                                 torch.tensor([f], device=dev), rounds)
+            got = b"".join(int(x).to_bytes(8, "little")
+                           for x in u64.to_ints(out[0])).hex()
+            status = "ok" if got == v["expected"] else f"FAIL: {got}"
+            bad += status != "ok"
+        print(f"vector {v['n']}: {status}")
+    return 1 if bad else 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="zkodst_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    for name, fn in (("prove", cmd_prove), ("mock", cmd_mock),
+                     ("vectors", cmd_vectors)):
+        p = sub.add_parser(name)
+        _add_common(p)
+        p.set_defaults(fn=fn)
+    args = ap.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

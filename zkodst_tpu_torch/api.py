@@ -1,9 +1,10 @@
 """Top-level pipeline: setup (SRS and keygen) → witness → proof → verify,
-for the EIP-152 BLAKE2f circuit, with phase timing.
+for the EIP-152 BLAKE2f circuit, with phase timing, the mock check and
+SRS and key caching.
 
-Counterpart of ``zkodst_tpu/api.py`` (:23-66, :75-101), v1 transcript and
-KZG. The phases are labelled ``setup``, ``setup.keygen``, ``prove``,
-``prove.witness``, ``prove.advice_commit``, ``prove.lookup_permute``,
+Counterpart of ``zkodst_tpu/api.py``, KZG on one device. The phases are
+labelled ``setup``, ``setup.keygen``, ``prove``, ``prove.witness``,
+``prove.advice_commit``, ``prove.lookup_permute``,
 ``prove.grand_products_commit``, ``prove.quotient``,
 ``prove.evaluations``, ``prove.multiopen`` and ``verify``.
 """
@@ -11,11 +12,12 @@ KZG. The phases are labelled ``setup``, ``setup.keygen``, ``prove``,
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
 from .circuit import blake2f as blake2f_circuit
+from .circuit import mock
 from .ops import blake2, u64
 from .proof import keygen, prover, srs, verifier
 from .utils.device import resolve
@@ -31,6 +33,10 @@ class Blake2fProver:
     pk: keygen.ProvingKey
     metrics: Metrics
 
+    @property
+    def n_inst(self) -> int:
+        return self.built.n_inst
+
     def witness(self, h, m, t, f):
         """h (B,8,2), m (B,16,2), t (B,2,2) u64 pairs, f (B,) ->
         (advice dict, instance dict) of (n, 2) tensors on the device."""
@@ -42,35 +48,63 @@ class Blake2fProver:
         return prover.commit_advice(self.params, self.built.circ, advice,
                                     seed, self.metrics)
 
-    def prove(self, h, m, t, f, seed: int = 0) -> Tuple[bytes, dict]:
+    def prove(self, h, m, t, f, seed: Optional[int] = 0,
+              transcript_mode: str = "v1") -> Tuple[bytes, dict]:
         """h (B,8,2), m (B,16,2), t (B,2,2), f (B,) -> (proof bytes,
-        instance dict of (n, 2) tensors)."""
+        instance dict of (n, 2) tensors). transcript_mode: "v1" or
+        "halo2ce" (:mod:`.proof.transcript`)."""
         with self.metrics.phase(PROVE):
             adv, inst = self.witness(h, m, t, f)
             proof = prover.create_proof(self.params, self.pk, adv, inst,
-                                        seed=seed, metrics=self.metrics)
+                                        seed=seed, metrics=self.metrics,
+                                        transcript_mode=transcript_mode)
         return proof, inst
 
-    def verify(self, instance: dict, proof: bytes) -> bool:
+    def verify(self, instance: dict, proof: bytes,
+               transcript_mode: str = "v1") -> bool:
         """True if `proof` proves the circuit on `instance` (the dict that
-        :meth:`prove` returned); on the host."""
+        :meth:`prove` returned), on the host; the pairing and its MSM run
+        in the native C++ core."""
         with self.metrics.phase(VERIFY):
             return verifier.verify_proof(self.params, self.pk.vk, instance,
-                                         proof)
+                                         proof, transcript_mode)
+
+    def mock_check(self, h, m, t, f) -> list:
+        """The witness's constraint failures (:func:`.circuit.mock.check`,
+        gates on the circuit's device); [] when it satisfies the circuit."""
+        adv, inst = self.built.witness(h, m, t, f)
+        return mock.check(self.built.circ, adv, inst, self.built.device)
 
 
 def setup_blake2f(k: int = 17, n_inst: int = 1, rounds: int = 12,
-                  srs_seed: int = 0, device=None) -> Blake2fProver:
+                  srs_seed: int = 0, cache_dir: Optional[str] = None,
+                  echo: bool = True, scheme: str = "kzg",
+                  device=None) -> Blake2fProver:
     """Build the circuit, make the SRS and the proving key on `device`
-    (CUDA by default; raises without CUDA unless device="cpu")."""
+    (CUDA by default; raises without CUDA unless device="cpu").
+
+    cache_dir: read the SRS and the key from there, or make them and
+    write them there (``srs.get_or_create``, ``keygen(cache_dir=...)``;
+    the reference's file names and formats). echo: print each phase's
+    Start:/End: lines. scheme: "kzg"; "ipa" is not ported yet."""
+    if scheme == "ipa":
+        raise NotImplementedError(
+            "the IPA backend is not ported yet (ROADMAP §1 item 8): use "
+            "scheme='kzg'")
+    if scheme != "kzg":
+        raise ValueError(f"unknown commitment scheme {scheme!r}")
     dev = resolve(device)
-    metrics = Metrics()
+    metrics = Metrics(echo=echo)
     with metrics.phase(SETUP):
         built = blake2f_circuit.Blake2fCircuit(k=k, n_inst=n_inst,
                                                rounds=rounds, device=dev)
-        params = srs.setup(k, seed=srs_seed, device=dev)
+        if cache_dir is not None:
+            params = srs.get_or_create(k, cache_dir, seed=srs_seed,
+                                       device=dev)
+        else:
+            params = srs.setup(k, seed=srs_seed, device=dev)
         with metrics.phase("setup.keygen"):
-            pk = keygen.keygen(params, built.circ)
+            pk = keygen.keygen(params, built.circ, cache_dir=cache_dir)
     return Blake2fProver(built=built, params=params, pk=pk, metrics=metrics)
 
 

@@ -69,6 +69,18 @@ class CircuitDef:
     def usable_rows(self) -> int:
         return self.n - BLINDING_ROWS - 1
 
+    def column_kind(self, name: str) -> str:
+        if name in self.fixed:
+            return "fixed"
+        if name in self.advice_names:
+            return "advice"
+        if name in self.instance_names:
+            return "instance"
+        raise KeyError(name)
+
+    def max_gate_degree(self) -> int:
+        return max((g.poly.degree() for g in self.gates), default=0)
+
     def validate(self) -> None:
         n = self.n
         names = (set(self.fixed) | set(self.advice_names)
@@ -87,6 +99,7 @@ class CircuitDef:
             for c in lk.table_cols:
                 assert c in self.fixed, \
                     f"lookup {lk.name}: table col {c} must be fixed"
+            self._validate_lookup_functional(lk)
         for name, ln in self.instance_len.items():
             assert name in self.instance_names, name
             assert 0 <= ln <= self.usable_rows
@@ -97,6 +110,30 @@ class CircuitDef:
                 assert rows.size == 0 or (
                     0 <= rows.min() and rows.max() < self.usable_rows), \
                     f"copy touches non-usable rows in {col}"
+
+    def _validate_lookup_functional(self, lk: "Lookup") -> None:
+        """The prover's lookup permutations sort by the first (key) table
+        column only (``proof/prover.py`` ``_lookup_perm_indices``), so
+        every other table column must be a function of the key column
+        (equal keys ⇒ equal rows), as a spread table is; a table with an
+        independent second column would make honest proofs fail, so it is
+        rejected here. Inputs need no check of their own: a valid
+        witness's input rows come from the table."""
+        if len(lk.table_cols) < 2:
+            return
+        key = self.fixed[lk.table_cols[0]]
+        kview = key.view(np.uint64).ravel()
+        order = np.argsort(kview, kind="stable")
+        ks = kview[order]
+        same_key = ks[1:] == ks[:-1]
+        for c in lk.table_cols[1:]:
+            vs = self.fixed[c].view(np.uint64).ravel()[order]
+            bad = same_key & (vs[1:] != vs[:-1])
+            assert not bad.any(), (
+                f"lookup {lk.name}: table column {c!r} is not a function of "
+                f"the key column {lk.table_cols[0]!r} (e.g. key "
+                f"{int(ks[np.argmax(bad) + 1])} maps to two values) — the "
+                "sort-by-key permutation build requires it")
 
 
 def u64_cols_to_field(F: Field, cols: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,10 @@ from . import pyfield
 L = 8                   # 32-bit limbs per element
 MASK32 = 0xFFFFFFFF
 MASK16 = 0xFFFF
-MUL_CHUNK = 1 << 18     # elements per plain Montgomery product pass
+# elements per plain Montgomery product pass: on the CPU a chunk whose
+# digit columns (256 bytes an element) stay in the caches; on the card few
+# passes, each ~100 launches
+MUL_CHUNK = {"cpu": 1 << 12, "cuda": 1 << 18}
 CHAIN_W = 2048          # runs of a chained prefix product (at most 2048)
 
 
@@ -295,27 +298,24 @@ class Field:
 
     def mont_mul64(self, a, b):
         """Montgomery product of int64 limb values (CIOS on 16-bit digits:
-        partial products < 2^32, column sums < 2^38). Long inputs run in
-        chunks of 2^18 elements: the partial-product grid takes 4 KB per
-        element."""
+        step i adds a_i·b and m_i·p at digit i and carries digit i on, so
+        no column exceeds 2^38). Long inputs run in chunks of
+        :data:`MUL_CHUNK` elements for their device."""
         a, b = torch.broadcast_tensors(a, b)
-        if a.numel() > MUL_CHUNK * L:
+        chunk = MUL_CHUNK.get(a.device.type, MUL_CHUNK["cuda"])
+        if a.numel() > chunk * L:
             fa, fb = a.reshape(-1, L), b.reshape(-1, L)
-            return torch.cat([self.mont_mul64(fa[i: i + MUL_CHUNK],
-                                              fb[i: i + MUL_CHUNK])
-                              for i in range(0, fa.shape[0], MUL_CHUNK)]
+            return torch.cat([self.mont_mul64(fa[i: i + chunk],
+                                              fb[i: i + chunk])
+                              for i in range(0, fa.shape[0], chunk)]
                              ).reshape(a.shape)
         a16, b16 = _split16(a), _split16(b)
         n16 = 2 * L
-        # column sums of the 16×16 partial products: row i of the padded
-        # (16, 32) grid, read with a row length of 31, starts i columns on
-        pp = a16[..., :, None] * b16[..., None, :]
-        flat = torch.nn.functional.pad(pp, (0, n16)).flatten(-2)
-        t = flat[..., :n16 * (2 * n16 - 1)].reshape(
-            pp.shape[:-1] + (2 * n16 - 1,)).sum(-2)
-        t = torch.nn.functional.pad(t, (0, 2))
+        t = torch.zeros(a16.shape[:-1] + (2 * n16,), dtype=torch.int64,
+                        device=a.device)
         p16 = torch.tensor(self._p16, dtype=torch.int64, device=a.device)
         for i in range(n16):
+            t[..., i:i + n16] += a16[..., i:i + 1] * b16
             m = ((t[..., i] & MASK16) * self.pinv16) & MASK16
             t[..., i:i + n16] += m[..., None] * p16
             t[..., i + 1] += t[..., i] >> 16

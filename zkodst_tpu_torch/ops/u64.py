@@ -38,11 +38,38 @@ def to_ints(w) -> np.ndarray:
     return w[..., 0].astype(object) + w[..., 1].astype(object) * (1 << 32)
 
 
+def to_u32(w) -> np.ndarray:
+    """(..., 2) pairs (tensor or numpy) -> the reference's uint32 numpy
+    layout, on the host."""
+    if isinstance(w, torch.Tensor):
+        w = w.cpu().numpy()
+    return np.asarray(w).astype(np.uint32)
+
+
 def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a + b) mod 2^64 on int64-held pairs."""
     lo = a[..., 0] + b[..., 0]
     hi = (a[..., 1] + b[..., 1] + (lo >> 32)) & MASK32
     return torch.stack([lo & MASK32, hi], dim=-1)
+
+
+def xor(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.bitwise_xor(a, b)
+
+
+def rotr(a: torch.Tensor, n: int) -> torch.Tensor:
+    """Rotate right by a static n in [0, 64)."""
+    n = int(n) % 64
+    lo, hi = a[..., 0], a[..., 1]
+    if n == 0:
+        return a
+    if n >= 32:
+        lo, hi = hi, lo
+        n -= 32
+        if n == 0:
+            return torch.stack([lo, hi], dim=-1)
+    return torch.stack([((lo >> n) | (hi << (32 - n))) & MASK32,
+                        ((hi >> n) | (lo << (32 - n))) & MASK32], dim=-1)
 
 
 def shl(a: torch.Tensor, n: int) -> torch.Tensor:

@@ -1,19 +1,21 @@
 """Key generation: the verifying and proving keys of a circuit.
 
-Counterpart of ``zkodst_tpu/proof/keygen.py`` (:36-63, :82-145, :148-165,
-:168-291) without its disk cache: the fixed columns in evaluation and
-coefficient form, the copy-constraint permutation σ as per-column
-(column, row) index maps and as the polynomials δ^col'·ω^row', and the
-commitments to both, which the verifying key binds into the transcript,
-and the Lagrange selector tables on the quotient's extended coset
-(``ext_selectors``, made on the device). :func:`from_numpy` turns a
-proving key cached by the reference (``pk_<fingerprint>.npz``) into this
+Counterpart of ``zkodst_tpu/proof/keygen.py``: the fixed columns in
+evaluation and coefficient form, the copy-constraint permutation σ as
+per-column (column, row) index maps and as the polynomials δ^col'·ω^row',
+and the commitments to both, which the verifying key binds into the
+transcript, and the Lagrange selector tables on the quotient's extended
+coset (``ext_selectors``, made on the device). With a ``cache_dir``,
+:func:`keygen` keeps the slow parts (σ maps, commitments, selectors) in
+``pk_<fingerprint>.npz`` in the reference's format, so either package
+reads the other's file; :func:`from_numpy` turns such a file into this
 module's :class:`ProvingKey`.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from ..circuit.ir import CircuitDef, u64_cols_to_field
-from ..ops.field import FR, from_limbs16
+from ..ops.field import FR, from_limbs16, to_limbs16
 from ..ops.pyfield import FR as PFR
 from . import pcs, srs
 from .domain import DELTA, Domain
@@ -45,13 +47,32 @@ class VerifyingKey:
                 for i in range(0, len(self.perm_cols), PERM_CHUNK)]
 
     def hash_into(self, transcript) -> None:
-        """Bind the vk into the transcript (v1): k, then every fixed
-        commitment in name order, then σ in ``perm_cols`` order."""
+        """Bind the vk into the transcript. v1: k, then every fixed
+        commitment in name order, then σ in ``perm_cols`` order. halo2ce:
+        the one scalar :meth:`transcript_repr`."""
+        if transcript.mode == "halo2ce":
+            transcript.common_scalar(self.transcript_repr())
+            return
         transcript.common_scalar(self.k)
         for name in sorted(self.fixed_commitments):
             transcript.common_point(self.fixed_commitments[name])
         for c in self.sigma_commitments:
             transcript.common_point(c)
+
+    def transcript_repr(self) -> int:
+        """One scalar binding the whole vk: blake2b-512 (personalization
+        ``b"Halo2-Verify-Key"``) over k, each fixed commitment's name and
+        halo2ce point bytes, then σ's, reduced mod r."""
+        from .transcript import compress_g1_halo2ce
+
+        h = hashlib.blake2b(digest_size=64, person=b"Halo2-Verify-Key")
+        h.update(self.k.to_bytes(4, "little"))
+        for name in sorted(self.fixed_commitments):
+            h.update(name.encode())
+            h.update(compress_g1_halo2ce(self.fixed_commitments[name]))
+        for c in self.sigma_commitments:
+            h.update(compress_g1_halo2ce(c))
+        return int.from_bytes(h.digest(), "little") % PFR.p
 
 
 @dataclass
@@ -181,11 +202,69 @@ def _key(params: srs.ParamsKZG, circ: CircuitDef, sigma_maps) -> ProvingKey:
         sigma_coeffs=list(dom.intt(sigma)), roots=roots)
 
 
-def keygen(params: srs.ParamsKZG, circ: CircuitDef,
-           msm_window: int = 13) -> ProvingKey:
+_SELECTORS = ("l0", "llast", "lblind", "zh_inv")
+
+
+def keygen(params: srs.ParamsKZG, circ: CircuitDef, msm_window: int = 13,
+           cache_dir: Optional[str] = None) -> ProvingKey:
     """The proving key of `circ` on the SRS's device: its polynomials,
     their commitments (full-width MSMs through kernels 8–12) and the
-    extended-coset selectors."""
+    extended-coset selectors.
+
+    With `cache_dir`, the key is read from ``pk_<fingerprint>.npz`` there
+    (the polynomials are made again on the device), or made and written
+    there when there is no such file; a file that cannot be read (one
+    that lacks an array of the format among them) is made again and
+    overwritten."""
+    if cache_dir is None:
+        return _keygen(params, circ, msm_window)
+    os.makedirs(cache_dir, exist_ok=True)
+    path = os.path.join(cache_dir, f"pk_{circuit_fingerprint(circ)}.npz")
+    if os.path.exists(path):
+        try:
+            with np.load(path, allow_pickle=False) as npz:
+                return from_numpy(npz, params, circ)
+        except (KeyError, ValueError, OSError) as ex:
+            print(f"# stale pk cache {path} ({type(ex).__name__}: {ex}): "
+                  "regenerating", flush=True)
+    pk = _keygen(params, circ, msm_window)
+    _save(pk, path)
+    return pk
+
+
+def _save(pk: ProvingKey, path: str) -> None:
+    """Write the key's cached arrays in the reference's format (points as
+    (2, 8) uint32 affine limbs with a flag, 0 for the identity; selectors
+    as (4n, 16) 16-bit limbs), through a temporary file that replaces
+    `path` whole, so a concurrent reader sees the old file or the new.
+    The archive is not compressed (``np.load`` reads either kind): field
+    values hardly compress, and compressing the flagship key took most of
+    the time of the setup that writes it."""
+    vk = pk.vk
+    names = sorted(vk.fixed_commitments)
+
+    def enc(pt):
+        return srs._ints_to_u32(pt if pt is not None else (0, 0))
+
+    tmp = f"{path}.{os.getpid()}.tmp.npz"
+    np.savez(
+        tmp,
+        fixed_comm_u32=np.stack([enc(vk.fixed_commitments[nm])
+                                 for nm in names]),
+        fixed_comm_flag=np.asarray(
+            [vk.fixed_commitments[nm] is not None for nm in names],
+            np.uint8),
+        sigma_comm_u32=np.stack([enc(p) for p in vk.sigma_commitments]),
+        sigma_comm_flag=np.asarray(
+            [p is not None for p in vk.sigma_commitments], np.uint8),
+        sig_col=np.stack([m[0] for m in pk.sigma_maps]),
+        sig_row=np.stack([m[1] for m in pk.sigma_maps]),
+        **{f"sel_{k}": to_limbs16(pk.ext_selectors[k]) for k in _SELECTORS})
+    os.replace(tmp, path)
+
+
+def _keygen(params: srs.ParamsKZG, circ: CircuitDef,
+            msm_window: int) -> ProvingKey:
     pk = _key(params, circ, None)
     pk.ext_selectors = Domain(circ.k).selectors_extended(
         params.g1_lagrange.device)
@@ -205,8 +284,8 @@ def from_numpy(npz, params: srs.ParamsKZG, circ: CircuitDef) -> ProvingKey:
     identity) and the extended-coset selectors (``sel_*``, 16-bit limbs)
     are read; the polynomials are made on the SRS's device."""
     nperm = len(perm_columns(circ))
-    pk = _key(params, circ, [(npz["sig_col"][i], npz["sig_row"][i])
-                             for i in range(nperm)])
+    cols, rows = npz["sig_col"], npz["sig_row"]      # each read once
+    pk = _key(params, circ, [(cols[i], rows[i]) for i in range(nperm)])
 
     def dec(pt_u32, flag):
         if not int(flag):
@@ -219,5 +298,5 @@ def from_numpy(npz, params: srs.ParamsKZG, circ: CircuitDef) -> ProvingKey:
         npz["sigma_comm_u32"], npz["sigma_comm_flag"])]
     pk.ext_selectors = {
         k: from_limbs16(npz[f"sel_{k}"], params.g1_lagrange.device)
-        for k in ("l0", "llast", "lblind", "zh_inv")}
+        for k in _SELECTORS}
     return pk

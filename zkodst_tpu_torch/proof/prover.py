@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..circuit.ir import BLINDING_ROWS, CircuitDef, u64_cols_to_field
+from ..ops import u64
 from ..ops.field import FR
 from ..ops.ntt import powers_table
 from ..ops.pyfield import FR as PFR
@@ -255,17 +256,40 @@ def chunk_tables(pk: ProvingKey):
 # ---------------------------------------------------------------------------
 
 def absorb_instances(tw: Blake2bWrite, circ: CircuitDef,
-                     instance_u64: Dict[str, torch.Tensor]) -> None:
-    """v1 (``prover.py:391-394``): one blake2b-512 digest (no
+                     instance_u64: Dict[str, object]) -> None:
+    """Bind the public inputs into the transcript; the prover and the
+    verifier run the same sequence.
+
+    v1 (``prover.py:391-394``): one blake2b-512 digest (no
     personalization) over every instance column's (n, 2) uint32 bytes in
     ``instance_names`` order, absorbed as one scalar. A circuit without
-    instance columns absorbs the digest of the empty input."""
+    instance columns absorbs the digest of the empty input.
+
+    halo2ce: every value of each column's declared ``instance_len``
+    prefix, column by column, as a common scalar. Only that prefix is
+    bound by the transcript while the verifier evaluates every nonzero
+    row, so a column with a nonzero row past it is rejected (ValueError),
+    as is a circuit that declares no length for a column."""
+    cols = {name: u64.to_u32(instance_u64[name])
+            for name in circ.instance_names}
+    if tw.mode == "halo2ce":
+        for name, col in cols.items():
+            ln = circ.instance_len.get(name)
+            if ln is None:
+                raise ValueError(
+                    f"halo2ce mode needs CircuitDef.instance_len[{name!r}] "
+                    "(the public-input vector length)")
+            if col[ln:].any():
+                raise ValueError(
+                    f"halo2ce mode: instance column {name!r} has nonzero "
+                    f"rows past its declared instance_len={ln} prefix; "
+                    "those rows would be unbound by the transcript")
+            for v in u64.to_ints(col[:ln]):
+                tw.common_scalar(int(v))
+        return
     hsh = hashlib.blake2b(digest_size=64)
-    for name in circ.instance_names:
-        col = instance_u64[name]
-        if isinstance(col, torch.Tensor):
-            col = col.cpu().numpy()
-        hsh.update(np.asarray(col).astype(np.uint32).tobytes())
+    for col in cols.values():
+        hsh.update(col.tobytes())
     tw.common_scalar(int.from_bytes(hsh.digest(), "little") % FR.p)
 
 
@@ -421,7 +445,8 @@ class Prover:
     def __init__(self, params: srs.ParamsKZG, pk: ProvingKey,
                  advice_u64: Dict[str, torch.Tensor],
                  instance_u64: Dict[str, torch.Tensor],
-                 seed: Optional[int] = None, metrics=None):
+                 seed: Optional[int] = None, metrics=None,
+                 transcript_mode: str = "v1"):
         self.params, self.pk, self.metrics = params, pk, metrics
         self.circ = pk.vk.circ
         self.dom = Domain(self.circ.k)
@@ -429,7 +454,7 @@ class Prover:
         self.advice_u64 = advice_u64
         self.rng = random.Random(secrets.token_bytes(32) if seed is None
                                  else ("zkodst-blind", seed).__repr__())
-        self.tw = Blake2bWrite()
+        self.tw = Blake2bWrite(transcript_mode)
         self.evals: Dict[str, torch.Tensor] = {}
         self.coeffs: Dict[str, torch.Tensor] = {}
         self.challenges: Dict[str, int] = {}
@@ -610,7 +635,8 @@ class Prover:
 def create_proof(params: srs.ParamsKZG, pk: ProvingKey,
                  advice_u64: Dict[str, torch.Tensor],
                  instance_u64: Dict[str, torch.Tensor],
-                 seed: Optional[int] = None, metrics=None) -> bytes:
+                 seed: Optional[int] = None, metrics=None,
+                 transcript_mode: str = "v1") -> bytes:
     """The proof's bytes: the advice points, the A′/S′ points, the
     permutation then lookup Z points, the four h points, the evaluations
     and SHPLONK's W and W′.
@@ -618,8 +644,10 @@ def create_proof(params: srs.ParamsKZG, pk: ProvingKey,
     advice_u64 / instance_u64: (n, 2) u64 pairs per column (tensors on the
     SRS's device; instance columns may also be numpy). seed: None draws the
     blinds from OS entropy; an int makes them deterministic (tests and
-    golden fixtures only)."""
-    pr = Prover(params, pk, advice_u64, instance_u64, seed, metrics)
+    golden fixtures only). transcript_mode: "v1" or "halo2ce"
+    (:mod:`.transcript`); the verifier must use the same."""
+    pr = Prover(params, pk, advice_u64, instance_u64, seed, metrics,
+                transcript_mode)
     pr.advice()
     pr.lookups()
     pr.grand_products()

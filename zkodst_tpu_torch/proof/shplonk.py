@@ -18,8 +18,9 @@ Both divisions run in evaluation form over H, as the reference's: each
 pass is a few broadcast field operations over the (claims, n) stack
 (kernels 1–3) and one batched inversion (kernels 4, 5, 1), then one iNTT
 and one MSM per witness point. Host work is O(claims · |S_i|²) scalars.
-The verifier's side is Python ints: a double-and-add MSM over the ~claims
-commitments and the pairing of :mod:`.pairing`.
+The verifier's MSM over the ~claims commitments and its pairing run in the
+host C++ core (:mod:`..native`), as the reference's do, or in Python ints
+(:func:`g1_msm`, :mod:`.pairing`) when asked.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from .. import native as core
 from ..ops import ntt as nttmod
 from ..ops import pycurve
 from ..ops.field import FR as DFR
@@ -179,8 +181,10 @@ def g1_msm(points: Sequence[object], scalars: Sequence[int]):
 
 
 def verify_claims(params: srs.ParamsKZG, dom: Domain, claims: List[Claim],
-                  tr) -> bool:
-    """Verifier: reads W and W′ and runs the pairing check."""
+                  tr, native: bool = True) -> bool:
+    """Verifier: reads W and W′ and runs the pairing check, the MSM and
+    the pairing in the host C++ core (:mod:`..native`), or in Python ints
+    with native=False."""
     p = FR.p
     y = tr.squeeze_challenge()
     w_pt = tr.read_point()
@@ -190,10 +194,14 @@ def verify_claims(params: srs.ParamsKZG, dom: Domain, claims: List[Claim],
     for i in range(1, len(claims)):
         ypows[i] = ypows[i - 1] * y % p
     zt_z, cs, const = _weights(claims, ypows, z)
+    if native:
+        msm, pairing_check = core.g1_msm, core.pairing_check
+    else:
+        msm, pairing_check = g1_msm, pairing.pairing_check
     # L_com = Σ c_i·C_i − [const]·G − Z_T(z)·W, plus z·W′
-    lhs = g1_msm([cl.commitment for cl in claims]
-                 + [pycurve.G1_GEN, w_pt, wp_pt],
-                 cs + [(-const) % p, (-zt_z) % p, z])
+    lhs = msm([cl.commitment for cl in claims]
+              + [pycurve.G1_GEN, w_pt, wp_pt],
+              cs + [(-const) % p, (-zt_z) % p, z])
     # e(L_com + z·W′, G2) == e(W′, [τ]G2)
-    return pairing.pairing_check(
+    return pairing_check(
         [(lhs, params.g2), (pycurve.G1.neg(wp_pt), params.s_g2)])

@@ -9,6 +9,7 @@ polynomials (monomial basis) through the Pippenger MSM.
 
 from __future__ import annotations
 
+import os
 import random
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from ..ops import curve, msm, pycurve
-from ..ops.field import from_limbs16
+from ..ops.field import from_limbs16, to_limbs16
 from ..ops.pyfield import FR
 from ..utils.device import resolve
 from .domain import Domain
@@ -124,6 +125,17 @@ def from_numpy(g1, g1_lagrange, g2, s_g2, device=None) -> ParamsKZG:
                      g2=g2, s_g2=s_g2)
 
 
+def _ints_to_u32(vals, nlimbs: int = 8) -> np.ndarray:
+    """Nested int tuples -> uint32 limb array, last axis = nlimbs (LE)."""
+    arr = np.asarray(vals, dtype=object)
+    out = np.zeros(arr.shape + (nlimbs,), np.uint32)
+    for idx in np.ndindex(arr.shape):
+        v = int(arr[idx])
+        for j in range(nlimbs):
+            out[idx + (j,)] = (v >> (32 * j)) & 0xFFFFFFFF
+    return out
+
+
 def _u32_to_ints(arr: np.ndarray):
     """uint32 limb array (last axis LE) -> nested tuples of ints."""
     if arr.ndim == 1:
@@ -132,10 +144,43 @@ def _u32_to_ints(arr: np.ndarray):
 
 
 def load(path: str, device=None) -> ParamsKZG:
-    """Read an SRS saved by the reference's ``srs.save`` (.npz)."""
-    z = np.load(path, allow_pickle=False)
-    return from_numpy(z["g1"], z["g1_lagrange"], _u32_to_ints(z["g2_u32"]),
-                      _u32_to_ints(z["s_g2_u32"]), device)
+    """Read an SRS saved by :func:`save` or the reference's (.npz)."""
+    with np.load(path, allow_pickle=False) as z:
+        return from_numpy(z["g1"], z["g1_lagrange"],
+                          _u32_to_ints(z["g2_u32"]),
+                          _u32_to_ints(z["s_g2_u32"]), device)
+
+
+def save(params: ParamsKZG, path: str) -> None:
+    """Write the SRS in the reference's format (points as (n, 3, 16)
+    16-bit limbs), uncompressed (as ``keygen.save``), through a temporary
+    file that replaces `path` whole."""
+    tmp = f"{path}.{os.getpid()}.tmp.npz"
+    np.savez(
+        tmp, k=params.k, g1=to_limbs16(params.g1),
+        g1_lagrange=to_limbs16(params.g1_lagrange),
+        g2_u32=_ints_to_u32(params.g2), s_g2_u32=_ints_to_u32(params.s_g2))
+    os.replace(tmp, path)
+
+
+def get_or_create(k: int, cache_dir: str = ".zkodst_cache", seed: int = 0,
+                  device=None) -> ParamsKZG:
+    """The SRS of (k, seed) from ``srs_bn254_k<k>[_s<seed>].npz`` in
+    `cache_dir`, made with :func:`setup` and written there when the file
+    is missing; a file that cannot be read is made again and
+    overwritten."""
+    os.makedirs(cache_dir, exist_ok=True)
+    sfx = f"_s{seed}" if seed else ""
+    path = os.path.join(cache_dir, f"srs_bn254_k{k}{sfx}.npz")
+    if os.path.exists(path):
+        try:
+            return load(path, device)
+        except (KeyError, ValueError, OSError) as ex:
+            print(f"# stale SRS cache {path} ({type(ex).__name__}): "
+                  "regenerating", flush=True)
+    params = setup(k, seed=seed, device=device)
+    save(params, path)
+    return params
 
 
 def commit_lagrange_many(params: ParamsKZG, evals_batch: torch.Tensor,

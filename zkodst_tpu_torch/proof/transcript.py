@@ -1,14 +1,20 @@
-"""Fiat–Shamir transcript, v1 wire format: the prover's and the
-verifier's side.
+"""Fiat–Shamir transcript: the prover's and the verifier's side, in two
+wire formats.
 
-A copy of the v1 mode of ``zkodst_tpu/proof/transcript.py``
-(``compress_g1``/``decompress_g1`` :51-79, ``Blake2bWrite`` :163-210,
-``Blake2bRead`` :213-267): Blake2b-512 with personalization
-``b"Halo2-Transcript"``; domain prefixes 0 = challenge squeeze, 1 = point,
-2 = scalar; points absorbed and serialized as 32-byte compressed G1 (LE x,
-y parity in bit 255, identity = zeros), scalars as 32-byte LE. A challenge
-absorbs prefix 0, finalizes a copy of the state to 64 bytes and reduces
-the 512-bit LE integer mod r.
+A copy of ``zkodst_tpu/proof/transcript.py`` without its ``"pasta"`` mode
+(which comes with the IPA backend). Both modes hash with Blake2b-512 under
+the personalization ``b"Halo2-Transcript"``, with domain prefixes 0 =
+challenge squeeze, 1 = point, 2 = scalar; scalars are 32-byte LE; a
+challenge absorbs prefix 0, finalizes a copy of the state to 64 bytes and
+reduces the 512-bit LE integer mod r.
+
+* ``"v1"``: points are absorbed and written as 32-byte compressed G1 (LE x,
+  y parity in bit 255, identity = zeros).
+* ``"halo2ce"``: points are absorbed as their full affine coordinates
+  (x ∥ y, 32-byte LE each) and written in the halo2curves bn256 layout (LE
+  x, y parity in bit 6 of byte 31, bit 255 clear); the verifying key
+  enters as one scalar (``VerifyingKey.transcript_repr``) and the
+  instances value by value (``prover.absorb_instances``).
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ PREFIX_CHALLENGE = b"\x00"
 PREFIX_POINT = b"\x01"
 PREFIX_SCALAR = b"\x02"
 
+MODES = ("v1", "halo2ce")
+
 
 def compress_g1(pt) -> bytes:
     """Affine (x, y) int tuple or None -> 32 bytes (LE x, y-parity bit 255)."""
@@ -36,17 +44,9 @@ def compress_g1(pt) -> bytes:
     return bytes(b)
 
 
-def decompress_g1(data: bytes):
-    """Inverse of compress_g1; raises ValueError unless `data` encodes a
-    point of the curve (or the identity)."""
-    if len(data) != 32:
-        raise ValueError("a point takes 32 bytes")
-    if data == bytes(32):
-        return None
-    b = bytearray(data)
-    if b[31] & 0x40:
-        raise ValueError("bit 254 is set (compress_g1 never sets it)")
-    ysign = (b[31] >> 7) & 1
+def _point_from(b: bytearray, ysign: int):
+    """The point with x = `b` (sign bits cleared) and y of parity `ysign`;
+    raises ValueError if there is none."""
     b[31] &= 0x3F
     x = int.from_bytes(bytes(b), "little")
     if x >= FQ.p:
@@ -59,15 +59,75 @@ def decompress_g1(data: bytes):
     return (x, y)
 
 
+def decompress_g1(data: bytes):
+    """Inverse of compress_g1; raises ValueError unless `data` encodes a
+    point of the curve (or the identity)."""
+    if len(data) != 32:
+        raise ValueError("a point takes 32 bytes")
+    if data == bytes(32):
+        return None
+    b = bytearray(data)
+    if b[31] & 0x40:
+        raise ValueError("bit 254 is set (compress_g1 never sets it)")
+    return _point_from(b, (b[31] >> 7) & 1)
+
+
+def compress_g1_halo2ce(pt) -> bytes:
+    """halo2curves bn256 layout: 32-byte LE x, y parity in bit 6 of byte
+    31; the identity is 32 zero bytes."""
+    if pt is None:
+        return bytes(32)
+    x, y = pt
+    b = bytearray(int(x).to_bytes(32, "little"))
+    assert b[31] & 0xC0 == 0, "x exceeds 254 bits"
+    if y & 1:
+        b[31] |= 0x40
+    return bytes(b)
+
+
+def decompress_g1_halo2ce(data: bytes):
+    """Inverse of compress_g1_halo2ce; raises ValueError unless `data`
+    encodes a point of the curve (or the identity) with bit 255 clear."""
+    if len(data) != 32:
+        raise ValueError("a point takes 32 bytes")
+    if data == bytes(32):
+        return None
+    b = bytearray(data)
+    if b[31] & 0x80:
+        raise ValueError("bit 255 must be clear (halo2curves layout)")
+    return _point_from(b, (b[31] >> 6) & 1)
+
+
+def _coords_bytes(pt) -> bytes:
+    """Full affine coordinates x ∥ y (32-byte LE each); identity = zeros."""
+    if pt is None:
+        return bytes(64)
+    return (int(pt[0]).to_bytes(32, "little")
+            + int(pt[1]).to_bytes(32, "little"))
+
+
 class _Transcript:
     """The Blake2b state both sides absorb into and squeeze from."""
 
-    def __init__(self):
+    def __init__(self, mode: str):
+        if mode not in MODES:
+            raise ValueError(f"transcript mode {mode!r} is not one of "
+                             f"{MODES}")
+        self.mode = mode
         self._h = hashlib.blake2b(digest_size=64, person=PERSON)
+
+    def _wire(self, pt) -> bytes:
+        """A point as the proof carries it."""
+        if self.mode == "halo2ce":
+            return compress_g1_halo2ce(pt)
+        return compress_g1(pt)
 
     def common_point(self, pt) -> None:
         self._h.update(PREFIX_POINT)
-        self._h.update(compress_g1(pt))
+        if self.mode == "halo2ce":
+            self._h.update(_coords_bytes(pt))
+        else:
+            self._h.update(compress_g1(pt))
 
     def common_scalar(self, v: int) -> None:
         self._h.update(PREFIX_SCALAR)
@@ -82,13 +142,13 @@ class _Transcript:
 class Blake2bWrite(_Transcript):
     """Prover-side transcript: absorbs proof elements, emits proof bytes."""
 
-    def __init__(self):
-        super().__init__()
+    def __init__(self, mode: str = "v1"):
+        super().__init__(mode)
         self._proof = bytearray()
 
     def write_point(self, pt) -> None:
         self.common_point(pt)
-        self._proof += compress_g1(pt)
+        self._proof += self._wire(pt)
 
     def write_scalar(self, v: int) -> None:
         self.common_scalar(v)
@@ -102,8 +162,8 @@ class Blake2bRead(_Transcript):
     """Verifier-side transcript: replays a proof byte stream. A malformed
     or missing element raises ValueError."""
 
-    def __init__(self, proof: bytes):
-        super().__init__()
+    def __init__(self, proof: bytes, mode: str = "v1"):
+        super().__init__(mode)
         self._proof = proof
         self._pos = 0
 
@@ -115,7 +175,9 @@ class Blake2bRead(_Transcript):
         return out
 
     def read_point(self):
-        pt = decompress_g1(self._take(32))
+        data = self._take(32)
+        pt = (decompress_g1_halo2ce(data) if self.mode == "halo2ce"
+              else decompress_g1(data))
         self.common_point(pt)
         return pt
 

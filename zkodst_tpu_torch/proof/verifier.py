@@ -1,13 +1,14 @@
 """verify_proof: transcript replay, the quotient identity at x and the
 SHPLONK pairing check, on the host.
 
-Counterpart of ``zkodst_tpu/proof/verifier.py`` (:31-167), v1 transcript
-and KZG only. It replays the Blake2b transcript, evaluates the same
+Counterpart of ``zkodst_tpu/proof/verifier.py`` (:31-167), KZG only. It
+replays the Blake2b transcript (v1 or halo2ce), evaluates the same
 constraint enumeration as the prover at the challenge x with Python ints
 (:mod:`.constraints`), checks numerator(x) == h(x)·(x^n − 1), and hands
-the batched opening to SHPLONK's pairing check. The instance columns are
-not committed: the verifier evaluates them at x from the public values
-(the Lagrange closed form over their nonzero rows).
+the batched opening to SHPLONK's pairing check (the native C++ core, or
+Python ints with ``native=False``). The instance columns are not
+committed: the verifier evaluates them at x from the public values (the
+Lagrange closed form over their nonzero rows).
 """
 
 from __future__ import annotations
@@ -15,7 +16,6 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
-import torch
 
 from ..ops import u64
 from ..ops.pyfield import FR as PFR
@@ -79,24 +79,21 @@ class _PointCtx:
         return a * b % PFR.p
 
 
-def _u64_numpy(col) -> np.ndarray:
-    if isinstance(col, torch.Tensor):
-        col = col.cpu().numpy()
-    return np.asarray(col).astype(np.uint32)
-
-
 def verify_proof(params: srs.ParamsKZG, vk: VerifyingKey,
-                 instance_u64: Dict[str, object], proof: bytes) -> bool:
+                 instance_u64: Dict[str, object], proof: bytes,
+                 transcript_mode: str = "v1", native: bool = True) -> bool:
     """True if `proof` proves `vk`'s circuit on these instance columns
-    ((n, 2) u64 pairs, tensors or numpy). A malformed proof is rejected,
-    never raised on."""
+    ((n, 2) u64 pairs, tensors or numpy) in `transcript_mode`, the
+    prover's. A malformed proof is rejected, never raised on; a native
+    core that cannot be built raises. native=False runs the pairing and
+    the MSM in Python ints."""
     circ = vk.circ
     dom = Domain(circ.k)
     n = dom.n
-    tr = Blake2bRead(proof)
+    tr = Blake2bRead(proof, transcript_mode)
     vk.hash_into(tr)
     try:
-        inst = {name: _u64_numpy(instance_u64[name])
+        inst = {name: u64.to_u32(instance_u64[name])
                 for name in circ.instance_names}
         absorb_instances(tr, circ, inst)
         coms: Dict[str, tuple] = {}
@@ -149,7 +146,7 @@ def verify_proof(params: srs.ParamsKZG, vk: VerifyingKey,
         if numer % PFR.p != h_at_x * dom.vanishing_eval(x) % PFR.p:
             return False
 
-        if not shplonk.verify_claims(params, dom, claims, tr):
+        if not shplonk.verify_claims(params, dom, claims, tr, native):
             return False
         return tr.done()
     except (AssertionError, ValueError, KeyError, IndexError,
