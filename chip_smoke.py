@@ -14,9 +14,13 @@ points, the verifying key's transcript digest, the 37 digests and all
 ``tests/golden/flagship_proof_v1.json``; the port's verifier must accept
 the card's proof and reject it with one byte flipped in a point and in a
 scalar. It profiles the warm phases, runs setup and prove once more
-under the profiler to read each kernel's device time on the path from the
-trace, then holds every kernel against its plain PyTorch version at each
-shape that run gave it, times both, and prints one JSON line of kernel
+recording each kernel's calls and shapes, reads each kernel's device time
+on that path from a trace of the same run in a process of its own
+(``--kzg-trace`` does only that and prints its JSON; each kernel's traced
+launches must equal its calls; a trace whose profiler dropped records is
+taken again in a new process, up to three times), then holds every kernel against its plain
+PyTorch version at each shape that run gave it, times both, and prints
+one JSON line of kernel
 records (with each kernel's registers, stack frame and spills as ptxas
 reports them, scale_reduce's dependent steps and time per step, and
 cumprod_tile's cluster, dependent products and time per product), the
@@ -43,14 +47,32 @@ sha256), ``cache`` (two setups from one cache directory: the golden vk
 digest both times, no file written by the second, the golden proof from
 it), ``native_verify`` (the golden proof through the native verifier core
 and through Python ints, three runs each) and ``cli`` (``python -m
-zkodst_tpu_torch prove`` and ``vectors`` in subprocesses). Any failure
-exits non-zero before the last line. It imports nothing of JAX or
+zkodst_tpu_torch prove`` and ``vectors`` in subprocesses). Two more phases drive the IPA commitment backend, each with the counts set
+to 0 before it: ``ipa`` (``setup_blake2f(k=17, n_inst=37, scheme="ipa")``
+with no cache; 70 generators against the host hash to the curve; the
+EIP-152 proof with blind seed 2, 5600 bytes, twice and byte-equal,
+verified, rejected with a byte of L_1 or of a₀ flipped and as the KZG
+flagship proof; all twelve kernels launched and each held to its twin at
+its largest IPA shape the KZG path does not give it; the warm phases
+profiled; the path traced by kernel in a process of its own
+(``--ipa-trace``, taken again as the KZG path's is), each kernel's
+traced launches equal to its calls; one
+opening timed against its MSMs alone, and its U and H terms on the card
+against the host; the toy circuit's IPA proof on the card against the JAX
+package's sha256) and ``pasta`` (commit, open and verify
+of one polynomial on the pallas curve at K = 3, against the JAX
+package's bytes, and at K = 10, each rejected with a byte flipped and
+with a wrong value; every Pasta instantiation of kernels 1–3 and 8 held
+to its twin at each of the phase's shapes). The kernel line lists the
+Pasta instantiations that the phase launched beside the twelve. Any
+failure exits non-zero before the last line. It imports nothing of JAX or
 zkodst_tpu and writes nothing outside the kernel build directories and a
 temporary cache directory that it removes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import inspect
 import json
@@ -71,6 +93,21 @@ CHAIN_MSG, CHAIN_SEED = b"x" * 300, 9     # 3 blocks (128 + 128 + 44 bytes)
 PROOF_BYTES = 4480     # 14 advice, 8 A'/S', 12 Z, 4 h points, 100
                        # evaluations, W and W'
 SCALAR_AT = 32 * (14 + 8 + 12 + 4)  # the first evaluation
+# the IPA flagship proof: the KZG proof's 4480 bytes less W′, plus the
+# opening's 2·17 L/R points, a₀ and ρ_f
+IPA_PROOF_BYTES = 4480 - 32 + 34 * 32 + 64
+IPA_L1_AT = SCALAR_AT + 100 * 32 + 32    # the first L (after W)
+IPA_A0_AT = IPA_PROOF_BYTES - 64
+IPA_SAMPLE_SEED = 17                     # the generators sampled
+# the JAX package's IPA proof of the toy circuit (k = 5, blind seed 3):
+# tests/test_torch_ipa_pipeline.py pins the same string
+TOY_IPA_SHA256 = \
+    "488377f10558d62a9833b7178e144e45d9294d18e332a90ffcd0b84225e75321"
+TOY_IPA_BYTES = 1280
+# the JAX package's pallas opening of tests/test_ipa_pasta.py's inputs
+# (K = 3), as tests/test_torch_ipa_pasta.py pins it
+PASTA_K3_SHA256 = \
+    "45ec9cce8eb33a67d7b2aaf18b264418dfae711658e1309df5473a1edc4d9524"
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory (data sheet)
 IMAD_PER_SM_CLOCK = 64              # 32-bit multiply results / SM / clock
 POINT_BYTES = 96                    # a projective point: 24 32-bit words
@@ -144,8 +181,11 @@ class Recorder:
     and keeps the work (bytes, operations) of every call on its own
     inputs."""
 
-    def __init__(self, sites):
+    def __init__(self, sites, classify=None):
         self.sites = sites              # name -> [(module, attr)]
+        # (name, args, kw) -> the name a call is recorded under, or None
+        # for a call that is not recorded
+        self.classify = classify or (lambda name, args, kw: name)
         self.calls = {}                 # (name, key) -> args
         self.n = {}                     # (name, key) -> calls
         self.work = {}                  # name -> [(bytes, operations)]
@@ -170,12 +210,16 @@ class Recorder:
             return _copy(a) if isinstance(a, torch.Tensor) else a
 
         def rec(*args, **kw):
+            as_name = self.classify(name, args, kw)
+            if as_name is None:
+                return fn(*args, **kw)
             key = call_key(args, kw)
-            if (name, key) not in self.calls:
-                self.calls[(name, key)] = (tuple(keep(a) for a in args),
-                                           {n: keep(v) for n, v in kw.items()})
-            self.n[(name, key)] = self.n.get((name, key), 0) + 1
-            self.work.setdefault(name, []).append(work(name, args, kw))
+            if (as_name, key) not in self.calls:
+                self.calls[(as_name, key)] = (
+                    tuple(keep(a) for a in args),
+                    {n: keep(v) for n, v in kw.items()})
+            self.n[(as_name, key)] = self.n.get((as_name, key), 0) + 1
+            self.work.setdefault(as_name, []).append(work(as_name, args, kw))
             return fn(*args, **kw)
         return rec
 
@@ -296,6 +340,8 @@ def work(name, args, kw=None):
     element it does not keep)."""
     import torch
 
+    name = name.split("[")[0]           # a Pasta instantiation's is its
+                                        # kernel's
     if name in ("mulmod", "addmod", "submod"):
         a, b = torch.broadcast_tensors(args[1], args[2])
         n = a.numel() // 8
@@ -464,6 +510,178 @@ def inv_batch_apart():
     return None
 
 
+def path_trace_only(scheme: str) -> int:
+    """``--kzg-trace`` / ``--ipa-trace``: the flagship path of one
+    commitment scheme traced by kernel, after one warm setup and prove, one
+    profiler session a phase: KZG's ``srs.setup``, keygen and prove (the
+    main process's recorded run), IPA's ``ipa.setup``, keygen, prove and
+    verify. Prints each kernel's [device ms, traced launches], its
+    wrapper's count and the binop rows that name no kernel."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from zkodst_tpu_torch import api, kernels
+    from zkodst_tpu_torch.kernels import build
+    from zkodst_tpu_torch.proof import ipa, keygen, srs
+
+    build.build()
+    inputs = api.eip152_inputs(N_INST)
+    pr = api.setup_blake2f(k=K, n_inst=N_INST, srs_seed=SRS_SEED,
+                           scheme=scheme, echo=False, device="cuda")
+    proof, inst = pr.prove(*inputs, seed=BLIND_SEED)
+    torch.cuda.synchronize()
+    traced, unnamed = {}, set()
+    kernels.reset_counts()
+    params = trace_phase(
+        (lambda: ipa.setup(K, device="cuda")) if scheme == "ipa"
+        else (lambda: srs.setup(K, seed=SRS_SEED, device="cuda")),
+        traced, unnamed)
+    pk = trace_phase(lambda: keygen.keygen(params, pr.built.circ), traced,
+                     unnamed)
+    pr2 = api.Blake2fProver(built=pr.built, params=params, pk=pk,
+                            metrics=pr.metrics)
+    trace_phase(lambda: pr2.prove(*inputs, seed=BLIND_SEED), traced,
+                unnamed)
+    if scheme == "ipa":
+        trace_phase(lambda: pr2.verify(inst, proof), traced, unnamed)
+    counted = {k: c for k, c in kernels.counts().items() if c}
+    print(json.dumps({"path_trace": {"traced": traced, "counted": counted,
+                                     "unnamed": sorted(unnamed)}}),
+          flush=True)
+    return 0
+
+
+TRACE_TRIES = 3     # processes a path's trace may take to record every launch
+
+
+def path_trace_apart(scheme: str):
+    """Run ``--<scheme>-trace`` in a process of its own, with this
+    process's cached blocks given back first, and return (its record or
+    None, the records each earlier process lost: wrapper -> launches).
+    CUPTI on an H100 sometimes drops a run of kernel records (one NTT's
+    seven, a few products), in about one trace in ten, late in this
+    script's process and in a fresh one alike; a trace whose records fall
+    short of its own process's wrapper counts is taken again in a new
+    process, up to TRACE_TRIES times, and the last one is returned."""
+    import torch
+
+    torch.cuda.empty_cache()
+    lost = []
+    for _ in range(TRACE_TRIES):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              f"--{scheme}-trace"], capture_output=True,
+                             text=True, timeout=600)
+        rec = next((json.loads(line)["path_trace"]
+                    for line in out.stdout.splitlines()
+                    if line.startswith('{"path_trace"')), None)
+        if rec is None:
+            log(f"{scheme} trace failed (exit {out.returncode}): "
+                f"{out.stderr.strip()[-400:]}")
+            return None, lost
+        gap = {name: rec["counted"].get(name, 0)
+               - rec["traced"].get(name, (0.0, 0))[1]
+               for name in set(rec["counted"]) | set(rec["traced"])}
+        gap = {name: d for name, d in sorted(gap.items()) if d}
+        if not gap:
+            return rec, lost
+        lost.append(gap)
+        log(f"{scheme} trace: the profiler lost launch records {gap}")
+    return rec, lost
+
+
+def trace_faults(scheme, trace, calls) -> list:
+    """What a path's trace shows wrong: it failed, a kernel's traced
+    launches differ from its wrapper's count in the tracing process or
+    from its calls in this one (`calls`: wrapper -> calls), or a binop row
+    names no kernel."""
+    if trace is None:
+        return [f"the {scheme} path's trace failed"]
+    out = []
+    for name, n in calls.items():
+        seen = trace["traced"].get(name, (0.0, 0))[1]
+        counted = trace["counted"].get(name, 0)
+        if not seen == counted == n:
+            out.append(f"{scheme} path: {name}: the trace holds {seen} "
+                       f"launches, its wrapper counted {counted} in that "
+                       f"process and was called {n} times here")
+    if trace["unnamed"]:
+        out.append(f"{scheme} path: trace rows naming no kernel: "
+                   f"{trace['unnamed']}")
+    return out
+
+
+def profile_warm(label_fns) -> dict:
+    """Each (label, fn) once warm, then once under the profiler: its wall
+    time, its device kernels' time and launches and the device's idle
+    share (1 − kernel time ÷ wall), logged with its eight longest
+    kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    profile = {}
+    for label, fn in label_fns:
+        fn()
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t1) * 1e3
+        rows = []
+        for ev in prof.key_averages():
+            dt = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+            if ev.device_type == torch.autograd.DeviceType.CUDA and dt > 0:
+                rows.append((dt / 1e3, ev.count, ev.key))
+        rows.sort(reverse=True)
+        busy = sum(r[0] for r in rows)
+        count = sum(r[1] for r in rows)
+        profile[label] = {"wall_ms": wall_ms, "kernel_ms": busy,
+                          "launches": count,
+                          "idle_share": 1 - busy / wall_ms if rows else None}
+        if rows:
+            log(f"profile {label} (warm): wall {wall_ms:.1f} ms, device "
+                f"kernels {busy:.2f} ms in {count} launches, device idle "
+                f"{100 * (1 - busy / wall_ms):.1f}%")
+        else:
+            log(f"profile {label} (warm): wall {wall_ms:.1f} ms, device "
+                "time not measured (the profiler saw no device kernels)")
+        for ms, cnt, key in rows[:8]:
+            log(f"  {ms:10.3f} ms {cnt:8d}x  {key[:70]}")
+    return profile
+
+
+def trace_phase(fn, traced, unnamed):
+    """fn() under the profiler (one session); each port kernel's device
+    time and launches added to `traced` (wrapper -> [ms, launches]), a
+    binop row that names no kernel to `unnamed`. Returns fn's result."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        dt = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if ev.device_type != torch.autograd.DeviceType.CUDA or dt <= 0:
+            continue
+        name = traced_kernel(ev.key)
+        if name is None:
+            if "binop_kernel" in ev.key:
+                unnamed.add(ev.key[:120])
+            continue
+        t = traced.setdefault(name, [0.0, 0])
+        t[0] += dt / 1e3
+        t[1] += ev.count
+    return out
+
+
 def hold_to_twins(rec, wrappers, plains, imad_rate, failures) -> dict:
     """Every recorded call again, on the kernel and on its twin: equal limb
     for limb (kernels 4 and 5 also in the directions and output kinds the
@@ -540,9 +758,10 @@ def idle_kernels(launches, names=None) -> list:
 
 
 def phase_line(name, record, faults, failures) -> None:
-    """Print a phase's JSON line and add its faults to `failures`."""
-    print(json.dumps({"phase": name, "ok": not faults, **record}),
-          flush=True)
+    """Print a phase's JSON line (with its faults) and add its faults to
+    `failures`."""
+    print(json.dumps({"phase": name, "ok": not faults, "faults": faults,
+                      **record}), flush=True)
     failures += [f"{name}: {f}" for f in faults]
 
 
@@ -799,11 +1018,370 @@ def cli_phase(cache_dir):
     return record, faults
 
 
+def toy_circuit(k: int = 5):
+    """The toy circuit of tests/test_torch_keygen.py (q·(a² − b) = 0,
+    a ∈ {0..15}, b[2] copied from b[1]) and its witness on the card."""
+    import numpy as np
+    import torch
+
+    from zkodst_tpu_torch.circuit.expr import V
+    from zkodst_tpu_torch.circuit.ir import CircuitDef, CopyGroup, Gate, \
+        Lookup
+    from zkodst_tpu_torch.ops import u64
+
+    n = 1 << k
+
+    def u64col(vals):
+        out = np.zeros((n, 2), np.uint32)
+        out[: len(vals)] = u64.from_ints(list(vals))
+        return out
+
+    sel = np.zeros((n, 2), np.uint32)
+    sel[:8, 0] = 1
+    circ = CircuitDef(
+        k=k, advice_names=["a", "b"], instance_names=[],
+        fixed={"q": sel, "t": u64col(range(16))},
+        gates=[Gate("square", V("q") * (V("a") * V("a") - V("b")))],
+        lookups=[Lookup("a_range", ["a"], ["t"])],
+        copies=[CopyGroup("b", np.array([1]), "b", np.array([2]))])
+    circ.validate()
+    a_vals = [(i * 7) % 16 for i in range(8)]
+    a_vals[2] = a_vals[1]
+    wit = {"a": u64col(a_vals), "b": u64col([v * v for v in a_vals])}
+    return circ, {c: torch.from_numpy(v.astype(np.int64)).to("cuda")
+                  for c, v in wit.items()}
+
+
+def largest_new(rec, old_calls, imad_rate):
+    """Per wrapper, the recorded call of the largest bound whose shape the
+    KZG path's recorded run did not give it: a Recorder-like view of just
+    those calls, for hold_to_twins."""
+    best = {}
+    for (name, key), (args, kw) in rec.calls.items():
+        if (name, key) in old_calls:
+            continue
+        b, o = work(name, args, kw)
+        bound = max(b / HBM_BYTES_PER_S, o / imad_rate)
+        if name not in best or bound > best[name][0]:
+            best[name] = (bound, key)
+    view = type("Picked", (), {})()
+    view.calls = {(n, k): rec.calls[(n, k)] for n, (_, k) in best.items()}
+    view.n = {nk: rec.n[nk] for nk in view.calls}
+    return view
+
+
+def ipa_phase(inputs, kzg_proof, kzg_calls, sites, wrappers, plains,
+              imad_rate):
+    """The IPA flagship on the card: ``setup_blake2f(scheme="ipa")`` with
+    no cache, a sample of the generators against the host hash to the
+    curve, the EIP-152 proof (blind seed 2) twice, byte-equal, verified,
+    and rejected with a byte of L_1 or of a₀ flipped and as the KZG
+    flagship proof; all twelve kernels launched; each kernel held to its
+    twin at its largest IPA shape the KZG path did not give it; the warm
+    phases profiled; the path traced by kernel (``--ipa-trace``); one
+    opening against its MSMs alone and its U and H terms on the card
+    against the host's; the toy circuit's IPA proof against the JAX pin.
+    Returns (record, faults)."""
+    import torch
+
+    from zkodst_tpu_torch import api, kernels
+    from zkodst_tpu_torch.ops import msm
+    from zkodst_tpu_torch.ops.field import FR as DFR
+    from zkodst_tpu_torch.proof import ipa, keygen, prover, verifier
+    from zkodst_tpu_torch.proof.transcript import Blake2bWrite
+
+    faults, record = [], {}
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    pr = api.setup_blake2f(k=K, n_inst=N_INST, scheme="ipa", echo=False,
+                           device="cuda")
+    proof, inst = pr.prove(*inputs, seed=BLIND_SEED)
+    t_ver = time.perf_counter()
+    accepted = pr.verify(inst, proof)
+    torch.cuda.synchronize()
+    record["verify_s"] = time.perf_counter() - t_ver
+    record["wall_s"] = time.perf_counter() - t0
+    launches = kernels.counts()
+    record["launches"] = launches
+    if idle_kernels(launches):
+        faults.append(f"kernels not launched: {idle_kernels(launches)}")
+    record["phases_s"] = {ph.label: ph.seconds for ph in pr.metrics.phases}
+    t1 = time.perf_counter()
+    gens = ipa.setup(K, device="cuda")
+    torch.cuda.synchronize()
+    record["generators_s"] = time.perf_counter() - t1
+    if not torch.equal(gens.g, pr.params.g):
+        faults.append("a second ipa.setup gives other generators")
+    del gens
+    log(f"ipa: setup {record['phases_s']['setup']:.3f} s (keygen "
+        f"{record['phases_s']['setup.keygen']:.3f} s; the generators alone "
+        f"{record['generators_s']:.3f} s), prove "
+        f"{record['phases_s']['prove']:.3f} s, verify "
+        f"{record['verify_s']:.3f} s; launches {launches}")
+
+    # the generators: a sample, h and u against the host hash to the curve
+    cfg = ipa._CFGS["bn254"]
+    rnd = random.Random(IPA_SAMPLE_SEED)
+    idx = [0, 1, 1 << 16, (1 << K) - 1] + [rnd.randrange(1 << K)
+                                          for _ in range(64)]
+    got = cfg.dev.to_affine_ints(pr.params.g[torch.tensor(idx,
+                                                           device="cuda")])
+    want = [ipa._hash_to_curve(cfg.tag, i) for i in idx]
+    hu = [ipa._hash_to_curve(cfg.tag[:-1] + c, 0) for c in (b"h", b"u")]
+    if got != want or [pr.params.h, pr.params.u] != hu:
+        faults.append("generators differ from the host hash to the curve "
+                      f"at {[i for i, a, b in zip(idx, got, want) if a != b]}")
+    record["generators_checked"] = len(idx) + 2
+
+    # the proof: its size, a second prove, the verifier
+    record["proof_bytes"] = len(proof)
+    record["proof_sha256"] = hashlib.sha256(proof).hexdigest()
+    if len(proof) != IPA_PROOF_BYTES:
+        faults.append(f"{len(proof)} bytes, not {IPA_PROOF_BYTES}")
+    t1 = time.perf_counter()
+    again, _ = pr.prove(*inputs, seed=BLIND_SEED)
+    torch.cuda.synchronize()
+    record["prove_warm_s"] = time.perf_counter() - t1
+    if again != proof:
+        faults.append("a second proof with the same seed differs")
+    if not accepted:
+        faults.append("the verifier rejects the IPA proof")
+    for what, bad in (("L_1", flipped(proof, IPA_L1_AT)),
+                      ("a0", flipped(proof, IPA_A0_AT)),
+                      ("the KZG flagship proof", kzg_proof)):
+        if pr.verify(inst, bad):
+            faults.append(f"the verifier accepts {what}")
+    runs = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        pr.verify(inst, proof)
+        runs.append(time.perf_counter() - t1)
+    record["verify_warm_s"] = runs
+    log(f"ipa: {len(proof)} bytes, sha256 {record['proof_sha256']}; warm "
+        f"prove {record['prove_warm_s']:.3f} s, verify {runs} s")
+
+    # warm phases profiled
+    adv, _ = pr.witness(*inputs)
+    staged = prover.Prover(pr.params, pr.pk, adv, inst, seed=BLIND_SEED)
+    staged.advice()
+    record["profile"] = profile_warm((
+        ("generators", lambda: ipa.setup(K, device="cuda")),
+        ("keygen", lambda: keygen.keygen(pr.params, pr.built.circ)),
+        ("advice_commit", lambda: pr.commit_advice(adv, seed=BLIND_SEED)),
+        ("lookup_permute", staged.lookups),
+        ("grand_products_commit", staged.grand_products),
+        ("quotient", staged.quotient),
+        ("evaluations", staged.evaluations),
+        ("multiopen", staged.multiopen),
+        ("verify", lambda: pr.verify(inst, proof))))
+    del staged
+
+    # the path's device time by kernel from a trace in a process of its own,
+    # and its calls and shapes recorded (not traced) here; each kernel's
+    # traced launches must equal its calls
+    trace, record["trace_lost"] = path_trace_apart("ipa")
+    with Recorder(sites) as rec:
+        params = ipa.setup(K, device="cuda")
+        pk = keygen.keygen(params, pr.built.circ)
+        pr2 = api.Blake2fProver(built=pr.built, params=params, pk=pk,
+                                metrics=pr.metrics)
+        pr2.prove(*inputs, seed=BLIND_SEED)
+        pr2.verify(inst, proof)
+        torch.cuda.synchronize()
+        del params, pk, pr2
+    calls = {name: sum(c for (nm, _), c in rec.n.items() if nm == name)
+             for name in wrappers}
+    faults += trace_faults("ipa", trace, calls)
+    traced = trace["traced"] if trace else {}
+    path = {}
+    for name in wrappers:
+        ms = traced.get(name, (0.0, 0))[0]
+        path[name] = {"calls": calls[name], "ms": ms, "bound_ms": sum(
+            max(b / HBM_BYTES_PER_S, o / imad_rate)
+            for b, o in rec.work.get(name, [])) * 1e3}
+        log(f"ipa path: {name} {calls[name]} calls, {ms:.3f} ms of device "
+            f"time against {path[name]['bound_ms']:.3f} ms at the bound")
+    record["path_by_kernel"] = path
+    held = hold_to_twins(largest_new(rec, kzg_calls, imad_rate), wrappers,
+                         plains, imad_rate, faults)
+    record["twins"] = {name: [e for e, _ in recs]
+                       for name, recs in held.items()}
+    # a kernel whose IPA shapes are all the KZG path's was held to its twin
+    # at each of them already
+    record["shapes_all_kzg"] = [name for name in wrappers
+                                if name not in held]
+    del rec
+
+    # the opening on one random polynomial: the whole opening, its 17
+    # two-row MSMs alone, and its ⟨a, b⟩·U + blind·H terms (two a round)
+    # on the card from the window tables (made once per params, timed
+    # apart), and on the host by scalar multiplications in Python ints, as
+    # the reference makes them
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    a = torch.randint(1, 1 << 32, (1 << K, 8), device="cuda",
+                      dtype=torch.int64, generator=g)
+    a[:, 7] %= DFR.p >> 224
+    a = (a - ((a >= 1 << 31).to(torch.int64) << 32)).to(torch.int32)
+    ips = ipa._normal(DFR, a[:2])
+    rnd = random.Random(13)
+    blinds = [(rnd.randrange(DFR.p), rnd.randrange(DFR.p)) for _ in range(K)]
+    pg, hh, uu = cfg.pg, pr.params.h, pr.params.u
+    timed = {}
+    for label, fn in (
+            ("uh_tables", lambda: ipa._bases_table(
+                dataclasses.replace(pr.params, bases=None))),
+            ("fixed_shape", lambda: ipa.open_poly(
+                pr.params, a, 0, 5, 0, Blake2bWrite(), rng=random.Random(3))),
+            ("fixed_shape_msms", lambda: [
+                msm.msm_many(pr.params.g, ipa._normal(
+                    DFR, torch.stack([a, a.flip(0)])), ipa.MSM_C)
+                for _ in range(K)]),
+            ("uh_terms_card", lambda: [
+                cfg.dev.to_affine_ints(ipa._bases_mul(pr.params, ips, bl))
+                for bl in blinds]),
+            ("uh_terms_host", lambda: [
+                [pg.add(pg.mul(uu, ip), pg.mul(hh, b))
+                 for ip, b in zip(DFR.to_ints(a[:2]), bl)] for bl in blinds])):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        timed[label] = time.perf_counter() - t1
+    record["opening_s"] = timed
+    log(f"ipa: one opening of 2^{K}: {timed['fixed_shape']:.3f} s, its {K} "
+        f"two-row MSMs alone {timed['fixed_shape_msms']:.3f} s; its {K} "
+        f"rounds' U and H terms on the card {timed['uh_terms_card']:.3f} s "
+        f"(their tables, once per params, {timed['uh_tables']:.3f} s), on "
+        f"the host {timed['uh_terms_host']:.3f} s")
+    if (cfg.dev.to_affine_ints(ipa._bases_mul(pr.params, ips, blinds[0]))
+            != [pg.add(pg.mul(uu, ip), pg.mul(hh, b))
+                for ip, b in zip(DFR.to_ints(a[:2]), blinds[0])]):
+        faults.append("the U and H terms on the card differ from the host's")
+
+    # the toy circuit against the JAX package's bytes
+    circ, wit = toy_circuit()
+    tparams = ipa.setup(circ.k, device="cuda")
+    tpk = keygen.keygen(tparams, circ)
+    toy = prover.create_proof(tparams, tpk, wit, {}, seed=3)
+    record["toy_sha256"] = hashlib.sha256(toy).hexdigest()
+    if len(toy) != TOY_IPA_BYTES or record["toy_sha256"] != TOY_IPA_SHA256:
+        faults.append(f"the toy IPA proof ({len(toy)} bytes, sha256 "
+                      f"{record['toy_sha256']}) is not the JAX package's")
+    if not verifier.verify_proof(tparams, tpk.vk, {}, toy):
+        faults.append("the verifier rejects the toy IPA proof")
+    log(f"ipa: toy proof {len(toy)} bytes, sha256 {record['toy_sha256']}"
+        f" ({'the JAX pin' if record['toy_sha256'] == TOY_IPA_SHA256 else 'NOT the JAX pin'})")
+    return record, faults
+
+
+def pasta_classify(name, args, kw):
+    """A wrapper call's Pasta instantiation (``mulmod[pasta_fp]``,
+    ``ec_add[pallas]``, …), or None for a BN254 call."""
+    if name == "ec_add":
+        curve = args[2] if len(args) > 2 else kw.get("curve")
+        return None if curve is None or not curve.kernel_id \
+            else f"ec_add[{curve.name}]"
+    return None if args[0].kernel_id < 2 else f"{name}[{args[0].name}]"
+
+
+def pasta_phase(imad_rate):
+    """Commit, open and verify one polynomial on the pallas curve at K = 3
+    (the reference's inputs, its bytes against the JAX pin) and K = 10
+    (random coefficients), each verified and rejected with a wrong value
+    and with a byte flipped; each Pasta instantiation held to its twin at
+    every shape of the phase. Returns (record, faults, held records)."""
+    import torch
+
+    from zkodst_tpu_torch import kernels
+    from zkodst_tpu_torch.kernels import ec as kec
+    from zkodst_tpu_torch.kernels import mulmod as kmul
+    from zkodst_tpu_torch.ops.field import PASTA_FR
+    from zkodst_tpu_torch.ops.pyfield import VESTA_BASE
+    from zkodst_tpu_torch.proof import ipa
+    from zkodst_tpu_torch.proof.transcript import (Blake2bRead,
+                                                   Blake2bWrite,
+                                                   compress_pasta)
+
+    faults, record = [], {}
+    sites = {name: [(kmul, name)] for name in ("mulmod", "addmod",
+                                               "submod")}
+    sites["ec_add"] = [(kec, "ec_add")]
+    kernels.reset_counts()
+    with Recorder(sites, pasta_classify) as rec:
+        for k in (3, 10):
+            n = 1 << k
+            rnd = random.Random(k)
+            coeffs = ([(7 * i + 3) % VESTA_BASE for i in range(n)] if k == 3
+                      else [rnd.randrange(VESTA_BASE) for _ in range(n)])
+            x, blind = 987654321, 12345
+            v = 0
+            for c in reversed(coeffs):
+                v = (v * x + c) % VESTA_BASE
+            t0 = time.perf_counter()
+            params = ipa.setup(k, curve_name="pasta", device="cuda")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cm = PASTA_FR.from_ints(coeffs, "cuda")
+            com = ipa.commit(params, cm, blind)
+            t2 = time.perf_counter()
+            tw = Blake2bWrite("pasta")
+            ipa.open_poly(params, cm, blind, x, v, tw, rng=random.Random(1))
+            proof = tw.finalize()
+            t3 = time.perf_counter()
+            ok = ipa.verify_poly(params, com, x, v,
+                                 Blake2bRead(proof, "pasta"), n=n)
+            t4 = time.perf_counter()
+            bad = ipa.verify_poly(params, com, x, v, Blake2bRead(
+                flipped(proof, 1), "pasta"), n=n)
+            wrong = ipa.verify_poly(params, com, x, (v + 1) % VESTA_BASE,
+                                    Blake2bRead(proof, "pasta"), n=n)
+            sha = hashlib.sha256(compress_pasta(com) + proof).hexdigest()
+            record[f"K{k}"] = {"setup_s": t1 - t0, "commit_s": t2 - t1,
+                               "open_s": t3 - t2, "verify_s": t4 - t3,
+                               "proof_bytes": len(proof), "sha256": sha}
+            if not ok:
+                faults.append(f"K={k}: the opening does not verify")
+            if bad or wrong:
+                faults.append(f"K={k}: accepts a flipped byte ({bad}) or a "
+                              f"wrong value ({wrong})")
+            if k == 3 and sha != PASTA_K3_SHA256:
+                faults.append(f"K=3: the opening is not the JAX package's "
+                              f"(sha256 {sha})")
+            log(f"pasta K={k}: setup {t1 - t0:.3f} s, commit {t2 - t1:.3f} "
+                f"s, open {t3 - t2:.3f} s, verify {t4 - t3:.3f} s, "
+                f"{len(proof)} bytes, sha256 {sha}")
+    launches = kernels.pasta_counts()
+    record["launches"] = launches
+    # submod on the pallas scalar field is built by the dispatch but no
+    # Pasta path subtracts scalars: it is held to its twin at the phase's
+    # widest scalar-field shape, apart from the path's kernels
+    off_path = "submod[pasta_fr]"
+    idle = [k for k in idle_kernels(launches) if k != off_path]
+    if idle:
+        faults.append(f"Pasta instantiations not launched: {idle}")
+    wrappers = {name: fn for name, (fn, _) in kernels.PASTA_WRAPPERS.items()}
+    plains = {name: getattr(kec if name.startswith("ec_add") else kmul,
+                            name.split("[")[0] + "_plain")
+              for name in wrappers}
+    widest = max((key for (nm, key) in rec.calls
+                  if nm == "mulmod[pasta_fr]"),
+                 key=lambda kk: math.prod(kk[1]))
+    args, _ = rec.calls[("mulmod[pasta_fr]", widest)]
+    rec.calls[(off_path, widest)] = (args, {})
+    rec.n[(off_path, widest)] = 0
+    held = hold_to_twins(rec, wrappers, plains, imad_rate, faults)
+    record["twin_shapes"] = {k: len(v) for k, v in held.items()}
+    return record, faults, held
+
+
 def main(argv) -> int:
     import torch
 
     if argv:
-        print("usage: chip_smoke.py [--inv-batch]", file=sys.stderr)
+        print("usage: chip_smoke.py [--inv-batch | --kzg-trace | "
+              "--ipa-trace]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -951,53 +1529,20 @@ def main(argv) -> int:
         failures.append(f"kernels not launched on the main path: {idle}")
 
     # -- warm profile of each phase -------------------------------------------
-    profile = {}
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
     adv, _ = pr.witness(*inputs)
     staged = prover.Prover(pr.params, pr.pk, adv, inst, seed=BLIND_SEED)
     staged.advice()
-    for label, fn in (
-            ("witness", lambda: pr.built.witness(*inputs)),
-            ("keygen", lambda: keygen.keygen(pr.params, pr.built.circ)),
-            ("advice_commit",
-             lambda: pr.commit_advice(adv, seed=BLIND_SEED)),
-            ("lookup_permute", staged.lookups),
-            ("grand_products_commit", staged.grand_products),
-            ("quotient", staged.quotient),
-            ("evaluations", staged.evaluations),
-            ("multiopen", staged.multiopen),
-            ("verify", lambda: pr.verify(inst, proof)),
-            ("mock", lambda: mock.check(pr.built.circ, adv, inst, "cuda"))):
-        fn()
-        torch.cuda.synchronize()
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            t1 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t1) * 1e3
-        rows = []
-        for ev in prof.key_averages():
-            dt = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-            if ev.device_type == torch.autograd.DeviceType.CUDA and dt > 0:
-                rows.append((dt / 1e3, ev.count, ev.key))
-        rows.sort(reverse=True)
-        busy = sum(r[0] for r in rows)
-        count = sum(r[1] for r in rows)
-        profile[label] = {"wall_ms": wall_ms, "kernel_ms": busy,
-                          "launches": count,
-                          "idle_share": 1 - busy / wall_ms if rows else None}
-        if rows:
-            log(f"profile {label} (warm): wall {wall_ms:.1f} ms, device "
-                f"kernels {busy:.2f} ms in {count} launches, device idle "
-                f"{100 * (1 - busy / wall_ms):.1f}%")
-        else:
-            log(f"profile {label} (warm): wall {wall_ms:.1f} ms, device "
-                "time not measured (the profiler saw no device kernels)")
-        for ms, cnt, key in rows[:8]:
-            log(f"  {ms:10.3f} ms {cnt:8d}x  {key[:70]}")
+    profile = profile_warm((
+        ("witness", lambda: pr.built.witness(*inputs)),
+        ("keygen", lambda: keygen.keygen(pr.params, pr.built.circ)),
+        ("advice_commit", lambda: pr.commit_advice(adv, seed=BLIND_SEED)),
+        ("lookup_permute", staged.lookups),
+        ("grand_products_commit", staged.grand_products),
+        ("quotient", staged.quotient),
+        ("evaluations", staged.evaluations),
+        ("multiopen", staged.multiopen),
+        ("verify", lambda: pr.verify(inst, proof)),
+        ("mock", lambda: mock.check(pr.built.circ, adv, inst, "cuda"))))
     del staged
 
     # -- every kernel against its plain version, at the main path's shapes ----
@@ -1015,43 +1560,25 @@ def main(argv) -> int:
         "chain_scan_local": [(msm, "chain_scan_local")],
         "scale_reduce": [(msm, "scale_reduce")],
     }
-    # the recorded run, traced: SRS, keygen and prove once more, so that
-    # each kernel's device time on the path is read from the trace; one
-    # profiler session a phase (a single session over all three lost a
-    # share of its kernel records in one of six runs on an H100)
-    traced = {}                         # wrapper -> [device ms, launches]
-    unnamed = set()
-
-    def traced_phase(fn):
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            out = fn()
-            torch.cuda.synchronize()
-        for ev in prof.key_averages():
-            dt = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-            if ev.device_type != torch.autograd.DeviceType.CUDA or dt <= 0:
-                continue
-            name = traced_kernel(ev.key)
-            if name is None:
-                if "binop_kernel" in ev.key:
-                    unnamed.add(ev.key[:120])
-                continue
-            t = traced.setdefault(name, [0.0, 0])
-            t[0] += dt / 1e3
-            t[1] += ev.count
-        return out
-
+    # the recorded run: SRS, keygen and prove once more, each kernel's
+    # calls and shapes recorded here; each kernel's device time on the path
+    # from a trace of the same run in a process of its own (one profiler
+    # session a phase; a single session over all three lost a share of its
+    # kernel records in one of six runs on an H100, and so did a session
+    # late in this process)
+    trace, kzg_trace_lost = path_trace_apart("kzg")
     with Recorder(sites) as rec:
-        params = traced_phase(
-            lambda: srs.setup(K, seed=SRS_SEED, device="cuda"))
-        pk = traced_phase(lambda: keygen.keygen(params, pr.built.circ))
+        params = srs.setup(K, seed=SRS_SEED, device="cuda")
+        pk = keygen.keygen(params, pr.built.circ)
         pr2 = api.Blake2fProver(built=pr.built, params=params, pk=pk,
                                 metrics=pr.metrics)
-        traced_phase(lambda: pr2.prove(*inputs, seed=BLIND_SEED))
+        pr2.prove(*inputs, seed=BLIND_SEED)
+        torch.cuda.synchronize()
         del params, pk, pr2
-    if unnamed:
-        failures.append(f"trace rows naming no kernel: {sorted(unnamed)}")
+    failures += trace_faults(
+        "kzg", trace, {name: sum(c for (nm, _), c in rec.n.items()
+                                 if nm == name) for name in sites})
+    traced = trace["traced"] if trace else {}
     wrappers = {name: fn for name, (fn, _) in kernels.WRAPPERS.items()}
     plains = {"mulmod": kmul.mulmod_plain, "addmod": kmul.addmod_plain,
               "submod": kmul.submod_plain,
@@ -1083,10 +1610,7 @@ def main(argv) -> int:
         # the recorded run's device time of this kernel, from its trace,
         # against every call's bound on that call's own inputs
         calls = sum(e["calls"] for e, _ in shapes)
-        ms, seen = traced.get(name, (0.0, 0))
-        if seen != calls:
-            failures.append(f"{name}: the trace holds {seen} launches, the "
-                            f"wrapper was called {calls} times")
+        ms = traced.get(name, (0.0, 0))[0]
         path = {"path_calls": calls, "path_ms": ms,
                 "path_bound_ms": sum(max(b / HBM_BYTES_PER_S, o / imad_rate)
                                      for b, o in rec.work[name]) * 1e3}
@@ -1119,10 +1643,26 @@ def main(argv) -> int:
         phase_line("cache", *cache_phase(inputs, golden, cache_dir),
                    failures)
         phase_line("cli", *cli_phase(cache_dir), failures)
+    # -- the IPA backend: the flagship over BN254, then Pasta's PCS ---------
+    phase_line("ipa", *ipa_phase(inputs, want_bytes, set(rec.calls), sites,
+                                 wrappers, plains, imad_rate), failures)
+    pasta, pasta_faults, pasta_held = pasta_phase(imad_rate)
+    phase_line("pasta", pasta, pasta_faults, failures)
+    for name, recs in pasta_held.items():
+        if not pasta["launches"][name]:
+            continue                    # held to its twin, on no path
+        top, _ = max(recs, key=lambda ea: ea[0]["bound_ms"])
+        base = name.split("[")[0]
+        line.append({"name": name, "route": "cuda", "source": SOURCES[base],
+                     "replaces": REPLACES[base],
+                     "launches": pasta["launches"][name], **top,
+                     "library_ms": None, "ptxas": ptxas.get(base),
+                     "other_shapes": [e for e, _ in recs if e is not top]})
     print(json.dumps({"card": card, "phases_s": phases,
                       "profile": profile}), flush=True)
     print(json.dumps({"kernels": line, "inv_batch": inv,
-                      "operand_copies": copies}), flush=True)
+                      "operand_copies": copies,
+                      "kzg_trace_lost": kzg_trace_lost}), flush=True)
     if failures:
         for f in failures:
             print(f"chip_smoke: FAILED: {f}", file=sys.stderr)
@@ -1137,4 +1677,6 @@ def main(argv) -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--inv-batch"]:
         sys.exit(inv_batch_only())
+    if sys.argv[1:] in (["--kzg-trace"], ["--ipa-trace"]):
+        sys.exit(path_trace_only(sys.argv[1][2:5]))
     sys.exit(main(sys.argv[1:]))

@@ -127,10 +127,25 @@ def test_stale_key_cache_is_made_again(tmp_path, capsys):
         assert "sel_zh_inv" in npz and npz["sig_col"].shape == (2, 32)
 
 
-def test_setup_blake2f_takes_no_ipa():
+def test_setup_blake2f_takes_no_ipa(monkeypatch):
+    """setup_blake2f(scheme="ipa") makes the IPA generators (from the
+    cache directory) and the key on them, not an SRS (the circuit, the
+    generators and the keygen stubbed: the real ones are the flagship's);
+    an unknown scheme raises."""
     from zkodst_tpu_torch import api
+    from zkodst_tpu_torch.proof import ipa
 
-    with pytest.raises(NotImplementedError, match="item 8"):
-        api.setup_blake2f(k=17, n_inst=1, scheme="ipa", device="cpu")
+    calls = []
+    monkeypatch.setattr(api.blake2f_circuit, "Blake2fCircuit",
+                        lambda **kw: type("B", (), {"circ": "circ"})())
+    monkeypatch.setattr(ipa, "setup", lambda k, cache_dir=None, device=None:
+                        calls.append(("ipa", k, cache_dir)) or "gens")
+    monkeypatch.setattr(srs, "setup", lambda *a, **kw: calls.append("srs"))
+    monkeypatch.setattr(keygen, "keygen", lambda params, circ, cache_dir:
+                        calls.append(("keygen", params, cache_dir)) or "pk")
+    pr = api.setup_blake2f(k=17, n_inst=1, scheme="ipa", cache_dir="d",
+                           echo=False, device="cpu")
+    assert calls == [("ipa", 17, "d"), ("keygen", "gens", "d")]
+    assert (pr.params, pr.pk) == ("gens", "pk")
     with pytest.raises(ValueError, match="scheme"):
         api.setup_blake2f(k=17, n_inst=1, scheme="fri", device="cpu")

@@ -1,7 +1,9 @@
 """The CUDA kernels' shared arithmetic header (cuda/csrc/field.cuh), built
 for the host with g++, against the plain twins and Python ints. The header
 is __host__ __device__, so this checks the Montgomery multiply, add, sub
-and the complete EC addition and doubling that every kernel runs, without
+(on BN254's two fields and the two Pasta fields, whose moduli are above
+2^254) and the complete EC addition (on BN254 and pallas) and doubling
+that every kernel runs, without
 a card (the host build takes the header's portable arithmetic; the card
 takes its PTX carry chains, held to the same twins by
 test_torch_kernels_cuda.py)."""
@@ -16,7 +18,8 @@ import pytest
 import torch
 
 from zkodst_tpu_torch.ops import curve, pycurve
-from zkodst_tpu_torch.ops.field import FQ, FR, ints_to_limbs
+from zkodst_tpu_torch.ops.field import FQ, FR, PASTA_FP, PASTA_FR, \
+    ints_to_limbs
 
 # several test workers share the host's cores: one intra-op thread each
 torch.set_num_threads(1)
@@ -26,22 +29,39 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 
 SHIM = r"""
 #include "field.cuh"
+template <class M>
+void fe_op_in(int op, const uint32_t* x, const uint32_t* y, uint32_t* r) {
+  if (op == 0) zk::mont_mul<M>(x, y, r);
+  else if (op == 1) zk::add_mod<M>(x, y, r);
+  else zk::sub_mod<M>(x, y, r);
+}
 extern "C" {
+// field: 0 Fr, 1 Fq, 2 PallasFp, 3 PallasFr (the kernels' field ids)
 void fe_op(int field, int op, const uint32_t* a, const uint32_t* b,
            uint32_t* o, long long n) {
   for (long long i = 0; i < n; ++i) {
     const uint32_t *x = a + 8 * i, *y = b + 8 * i;
     uint32_t* r = o + 8 * i;
-    if (field == 0) {
-      if (op == 0) zk::mont_mul<zk::Fr>(x, y, r);
-      else if (op == 1) zk::add_mod<zk::Fr>(x, y, r);
-      else zk::sub_mod<zk::Fr>(x, y, r);
-    } else {
-      if (op == 0) zk::mont_mul<zk::Fq>(x, y, r);
-      else if (op == 1) zk::add_mod<zk::Fq>(x, y, r);
-      else zk::sub_mod<zk::Fq>(x, y, r);
-    }
+    if (field == 0) fe_op_in<zk::Fr>(op, x, y, r);
+    else if (field == 1) fe_op_in<zk::Fq>(op, x, y, r);
+    else if (field == 2) fe_op_in<zk::PallasFp>(op, x, y, r);
+    else fe_op_in<zk::PallasFr>(op, x, y, r);
   }
+}
+void pt_add_pallas(const uint32_t* p, const uint32_t* q, uint32_t* o,
+                   long long n) {
+  for (long long i = 0; i < n; ++i) {
+    zk::Pt x, y, s;
+    zk::load_pt(p + 24 * i, 1, 0, x);
+    zk::load_pt(q + 24 * i, 1, 0, y);
+    zk::ec_add<zk::Pallas>(x, y, s);
+    zk::store_pt(o + 24 * i, 1, 0, s);
+  }
+}
+void identity_pallas(uint32_t* o) {
+  zk::Pt p;
+  zk::set_identity<zk::Pallas>(p);
+  zk::store_pt(o, 1, 0, p);
 }
 // points as (n, 3, 8) words
 void pt_add(const uint32_t* p, const uint32_t* q, uint32_t* o, long long n) {
@@ -76,7 +96,9 @@ void bfly(int field, uint32_t* u, uint32_t* v, const uint32_t* w,
 }
 void one(int field, uint32_t* o) {
   if (field == 0) zk::Fr::one(o);
-  else zk::Fq::one(o);
+  else if (field == 1) zk::Fq::one(o);
+  else if (field == 2) zk::PallasFp::one(o);
+  else zk::PallasFr::one(o);
 }
 }
 """
@@ -97,6 +119,8 @@ def lib(tmp_path_factory):
     lib.fe_op.argtypes = [ctypes.c_int, ctypes.c_int, P, P, P,
                           ctypes.c_longlong]
     lib.pt_add.argtypes = [P, P, P, ctypes.c_longlong]
+    lib.pt_add_pallas.argtypes = [P, P, P, ctypes.c_longlong]
+    lib.identity_pallas.argtypes = [P]
     lib.pt_dbl.argtypes = [P, P, ctypes.c_longlong]
     lib.identity.argtypes = [P]
     lib.bfly.argtypes = [ctypes.c_int, P, P, P, ctypes.c_longlong]
@@ -114,13 +138,21 @@ def _run(fn, *arrays, out_shape):
 rng = np.random.default_rng(61)
 
 
+FIELDS = [FR, FQ, PASTA_FP, PASTA_FR]
+FIELD_IDS = ["fr", "fq", "pasta_fp", "pasta_fr"]
+
+
 @pytest.mark.parametrize("op", [0, 1, 2], ids=["mul", "add", "sub"])
-@pytest.mark.parametrize("F", [FR, FQ], ids=["fr", "fq"])
+@pytest.mark.parametrize("F", FIELDS, ids=FIELD_IDS)
 def test_field_ops(lib, F, op):
+    """Every pair of 200 random values and the edges 0, 1, p − 1, p − 2,
+    2^255 mod p and R = 2^256 mod p (the Pasta moduli are above 2^254, so
+    there the sums of canonical values reach past 2^255)."""
     a = [int.from_bytes(rng.bytes(40), "little") % F.p for _ in range(200)]
     b = [int.from_bytes(rng.bytes(40), "little") % F.p for _ in range(200)]
-    edges = [0, 1, F.p - 1, F.r]
-    a, b = a + edges * 4, b + [e for e in edges for _ in range(4)]
+    edges = [0, 1, F.p - 1, F.p - 2, (1 << 255) % F.p, F.r]
+    a = a + edges * len(edges)
+    b = b + [e for e in edges for _ in range(len(edges))]
     A, B = F.from_ints(a), F.from_ints(b)
     n = len(a)
     got = _run(lambda x, y, o: lib.fe_op(F.kernel_id, op, x, y, o, n),
@@ -128,6 +160,9 @@ def test_field_ops(lib, F, op):
                out_shape=(n, 8))
     plain = {0: F.mul, 1: F.add, 2: F.sub}[op](A, B)
     np.testing.assert_array_equal(got, plain.numpy().view(np.uint32))
+    want = [{0: x * y, 1: x + y, 2: x - y}[op] % F.p for x, y in zip(a, b)]
+    assert [int(v) for v in F.to_ints(torch.from_numpy(
+        got.view(np.int32)))] == want
 
 
 def test_ec_add_and_identity(lib):
@@ -149,6 +184,39 @@ def test_ec_add_and_identity(lib):
     assert curve.to_affine_ints(torch.from_numpy(got.view(np.int32))) \
         == [G.add(x, y) for x, y in zip(a, b)]
     assert ints_to_limbs(FQ.r).tolist() == ident[1].tolist()
+
+
+def test_pallas_ec_add_and_identity(lib):
+    """The complete addition on pallas (b3 = 15) against its plain twin
+    limb for limb and the host oracle PASTA_G1: random points, the
+    identity on either side, P + P and P + (−P)."""
+    G, GEN = pycurve.PASTA_G1, pycurve.PASTA_G1_GEN
+    ks = [int(k) for k in rng.integers(1, 1 << 40, 48)]
+    a = [G.mul(GEN, k) for k in ks] + [None, GEN, GEN, GEN]
+    b = [G.mul(GEN, k + 3) for k in ks] + [GEN, None, GEN, G.neg(GEN)]
+    C = curve.PASTA
+    proj = C.add(C.from_affine_ints(a), C.from_affine_ints([GEN] * len(a)))
+    P, Q = proj, C.from_affine_ints(b)        # P with Z ≠ 1
+    n = len(a)
+    got = _run(lambda x, y, o: lib.pt_add_pallas(x, y, o, n),
+               P.numpy().view(np.uint32), Q.numpy().view(np.uint32),
+               out_shape=(n, 3, 8))
+    np.testing.assert_array_equal(got, C.add(P, Q).numpy().view(np.uint32))
+    assert C.to_affine_ints(torch.from_numpy(got.view(np.int32))) == \
+        [G.add(G.add(x, GEN), y) for x, y in zip(a, b)]
+    ident = np.zeros((3, 8), np.uint32)
+    lib.identity_pallas(ident.ctypes.data)
+    np.testing.assert_array_equal(ident, C.identity().numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("F", [PASTA_FP, PASTA_FR],
+                         ids=["pasta_fp", "pasta_fr"])
+def test_pasta_one(lib, F):
+    """The header's Montgomery 1 of the Pasta fields (their one() is the
+    identity's Y on pallas and the kernels' raw input of R)."""
+    one = np.zeros(8, np.uint32)
+    lib.one(F.kernel_id, one.ctypes.data)
+    np.testing.assert_array_equal(one, F.ONE)
 
 
 @pytest.mark.parametrize("F", [FR, FQ], ids=["fr", "fq"])

@@ -12,7 +12,7 @@ import torch
 from zkodst_tpu_torch.kernels import ec, mulmod, ntt
 from zkodst_tpu_torch.ops import curve, pycurve
 from zkodst_tpu_torch.ops import ntt as ontt
-from zkodst_tpu_torch.ops.field import FQ, FR
+from zkodst_tpu_torch.ops.field import FQ, FR, PASTA_FP, PASTA_FR
 from zkodst_tpu_torch.ops.pyfield import FR as PFR
 
 # several test workers share the host's cores: one intra-op thread each
@@ -289,3 +289,61 @@ def test_wrappers_reject_bad_input(dev):
     with pytest.raises(ValueError):              # an out of the wrong shape
         mulmod.mulmod(FR, x, x, out=torch.empty((47, 8), dtype=torch.int32,
                                                 device=dev))
+
+
+# -- the Pasta instantiations (kernels 1–3 on both Pasta fields, kernel 8 on
+# pallas) --------------------------------------------------------------------
+
+@pytest.mark.parametrize("op", ["mulmod", "addmod", "submod"])
+@pytest.mark.parametrize("F", [PASTA_FP, PASTA_FR],
+                         ids=["pasta_fp", "pasta_fr"])
+def test_pasta_binops(dev, F, op):
+    """Random values and the edges 0, 1, p − 1, p − 2, 2^255 mod p and R
+    mod p, elementwise and against a broadcast constant; each launch is
+    counted as its Pasta instantiation."""
+    from zkodst_tpu_torch import kernels
+
+    r = np.random.default_rng(81)
+    edges = [0, 1, F.p - 1, F.p - 2, (1 << 255) % F.p, F.r]
+    xs = [int.from_bytes(r.bytes(40), "little") % F.p for _ in range(2051)]
+    xs += [e for e in edges for _ in edges]
+    ys = xs[::-1][:2051] + edges * len(edges)
+    a, b = F.from_ints(xs), F.from_ints(ys)
+    fn, plain = getattr(mulmod, op), getattr(mulmod, op + "_plain")
+    kernels.reset_counts()
+    _same(fn(F, a.to(dev), b.to(dev)), plain(F, a, b))
+    c = F.const(F.R2)
+    _same(fn(F, a.to(dev), c.to(dev)), plain(F, a, c))
+    assert kernels.pasta_counts()[f"{op}[{F.name}]"] == 2
+    assert kernels.counts()[op] == 0
+
+
+def test_pasta_ec_add(dev):
+    """pallas points with the identity on either side, P + P and
+    P + (−P), with Z ≠ 1, against the twin limb for limb."""
+    from zkodst_tpu_torch import kernels
+
+    G, GEN = pycurve.PASTA_G1, pycurve.PASTA_G1_GEN
+    C = curve.PASTA
+    r = np.random.default_rng(82)
+    a = [G.mul(GEN, int(k)) for k in r.integers(1, 1 << 30, 300)]
+    b = [G.mul(GEN, int(k)) for k in r.integers(1, 1 << 30, 300)]
+    a[::37] = [None] * len(a[::37])
+    b[5], b[6], b[7] = a[5], G.neg(a[6]), None
+    P = curve.pack(C.add(C.from_affine_ints(a),
+                         C.from_affine_ints([GEN] * len(a))))
+    Q = curve.pack(C.from_affine_ints(b))
+    kernels.reset_counts()
+    _same(ec.ec_add(P.to(dev), Q.to(dev), C), ec.ec_add_plain(P, Q, C))
+    assert kernels.pasta_counts()["ec_add[pallas]"] == 1
+    assert kernels.counts()["ec_add"] == 0
+
+
+def test_bn254_kernels_refuse_pasta_fields(dev):
+    x = torch.zeros((4096, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="BN254"):
+        mulmod.chain_cumprod(PASTA_FR, x, 2048)
+    with pytest.raises(ValueError, match="BN254"):
+        mulmod.cumprod_tile(PASTA_FR, x[:64])
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ntt.ntt_head(PASTA_FR, x[None], x[:2048], 1024)

@@ -32,7 +32,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "not ported yet)")
     p.add_argument("--commitment", default="kzg", choices=("kzg", "ipa"),
                    help="polynomial commitment scheme: kzg (BN254 + "
-                        "SHPLONK) or ipa (not ported yet)")
+                        "SHPLONK) or ipa (transparent, BN254)")
     p.add_argument("--transcript-mode", default="v1",
                    choices=("v1", "halo2ce"),
                    help="transcript flavor: v1 (pinned native format) or "

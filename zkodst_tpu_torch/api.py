@@ -2,7 +2,9 @@
 for the EIP-152 BLAKE2f circuit, with phase timing, the mock check and
 SRS and key caching.
 
-Counterpart of ``zkodst_tpu/api.py``, KZG on one device. The phases are
+Counterpart of ``zkodst_tpu/api.py`` on one device, with either
+commitment scheme: KZG (BN254 + SHPLONK) or the transparent IPA over
+BN254 (``scheme="ipa"``). The phases are
 labelled ``setup``, ``setup.keygen``, ``prove``, ``prove.witness``,
 ``prove.advice_commit``, ``prove.lookup_permute``,
 ``prove.grand_products_commit``, ``prove.quotient``,
@@ -19,7 +21,7 @@ import numpy as np
 from .circuit import blake2f as blake2f_circuit
 from .circuit import mock
 from .ops import blake2, u64
-from .proof import keygen, prover, srs, verifier
+from .proof import ipa, keygen, pcs, prover, srs, verifier
 from .utils.device import resolve
 from .utils.timing import PROVE, SETUP, VERIFY, Metrics
 
@@ -29,7 +31,7 @@ class Blake2fProver:
     """A BLAKE2f pipeline at fixed (k, instances, rounds) on one device."""
 
     built: blake2f_circuit.Blake2fCircuit
-    params: srs.ParamsKZG
+    params: pcs.Params
     pk: keygen.ProvingKey
     metrics: Metrics
 
@@ -63,8 +65,9 @@ class Blake2fProver:
     def verify(self, instance: dict, proof: bytes,
                transcript_mode: str = "v1") -> bool:
         """True if `proof` proves the circuit on `instance` (the dict that
-        :meth:`prove` returned), on the host; the pairing and its MSM run
-        in the native C++ core."""
+        :meth:`prove` returned): on the host, the KZG pairing and its MSM
+        in the native C++ core; the IPA check's n-point MSM on the
+        params' device."""
         with self.metrics.phase(VERIFY):
             return verifier.verify_proof(self.params, self.pk.vk, instance,
                                          proof, transcript_mode)
@@ -80,25 +83,25 @@ def setup_blake2f(k: int = 17, n_inst: int = 1, rounds: int = 12,
                   srs_seed: int = 0, cache_dir: Optional[str] = None,
                   echo: bool = True, scheme: str = "kzg",
                   device=None) -> Blake2fProver:
-    """Build the circuit, make the SRS and the proving key on `device`
-    (CUDA by default; raises without CUDA unless device="cpu").
+    """Build the circuit, make the commitment params (the KZG SRS or the
+    IPA generators) and the proving key on `device` (CUDA by default;
+    raises without CUDA unless device="cpu").
 
-    cache_dir: read the SRS and the key from there, or make them and
-    write them there (``srs.get_or_create``, ``keygen(cache_dir=...)``;
-    the reference's file names and formats). echo: print each phase's
-    Start:/End: lines. scheme: "kzg"; "ipa" is not ported yet."""
-    if scheme == "ipa":
-        raise NotImplementedError(
-            "the IPA backend is not ported yet (ROADMAP §1 item 8): use "
-            "scheme='kzg'")
-    if scheme != "kzg":
+    cache_dir: read the params and the key from there, or make them and
+    write them there (``srs.get_or_create``, ``ipa.setup(cache_dir=...)``,
+    ``keygen(cache_dir=...)``; the reference's file names and formats).
+    echo: print each phase's Start:/End: lines. scheme: "kzg" (BN254 +
+    SHPLONK) or "ipa" (transparent, BN254; srs_seed is not used)."""
+    if scheme not in ("kzg", "ipa"):
         raise ValueError(f"unknown commitment scheme {scheme!r}")
     dev = resolve(device)
     metrics = Metrics(echo=echo)
     with metrics.phase(SETUP):
         built = blake2f_circuit.Blake2fCircuit(k=k, n_inst=n_inst,
                                                rounds=rounds, device=dev)
-        if cache_dir is not None:
+        if scheme == "ipa":
+            params = ipa.setup(k, cache_dir=cache_dir, device=dev)
+        elif cache_dir is not None:
             params = srs.get_or_create(k, cache_dir, seed=srs_seed,
                                        device=dev)
         else:

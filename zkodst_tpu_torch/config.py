@@ -2,11 +2,10 @@
 ``zkodst_tpu/config.py``, plus the device to run on.
 
 The circuit degree defaults to the ``DEGREE`` environment variable (else
-17) and the instance count to ``ZKODST_BENCH_INSTANCES`` (else 37). The
-multi-GPU prover is not ported yet (ROADMAP §1 item 9), so a mesh shape
-raises; ``commitment="ipa"`` is accepted here, as in the reference, and
-``api.setup_blake2f`` raises for it until the IPA backend is ported
-(ROADMAP §1 item 8).
+17) and the instance count to ``ZKODST_BENCH_INSTANCES`` (else 37);
+``commitment`` is "kzg" or "ipa" (both over BN254: the whole pipeline on
+Pasta is not the reference's either). The multi-GPU prover is not ported
+yet (ROADMAP §1 item 9), so a mesh shape raises.
 """
 
 from __future__ import annotations
@@ -29,7 +28,7 @@ class RunConfig:
     n_inst: int = field(
         default_factory=lambda: _env_int("ZKODST_BENCH_INSTANCES", 37))
     rounds: int = 12
-    commitment: str = "kzg"          # KZG/BN254 + SHPLONK
+    commitment: str = "kzg"          # KZG/BN254 + SHPLONK, or "ipa"
     curve: str = "bn254"
     cache_dir: Optional[str] = ".zkodst_cache"
     seed: Optional[int] = None       # None: blinds from OS entropy
@@ -45,8 +44,8 @@ class RunConfig:
                 "(transparent IPA)")
         if self.curve != "bn254":
             raise NotImplementedError(
-                "only BN254 is built (Pasta comes with the IPA backend, "
-                "ROADMAP §1 item 8)")
+                "the pipeline runs on BN254 (Pasta runs at the commitment "
+                "level: proof/ipa.py with curve_name='pasta')")
         if self.mesh_shape is not None:
             raise NotImplementedError(
                 "the multi-GPU prover is not ported yet (ROADMAP §1 item "

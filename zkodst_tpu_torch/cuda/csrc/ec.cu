@@ -1,4 +1,6 @@
-// BN254 G1 kernels of the MSM and the SRS ladder, on packed points.
+// G1 kernels of the MSM, the SRS ladder and the IPA opening, on packed
+// points: BN254 throughout, and the complete addition also on the Pasta
+// pallas curve (the IPA backend's second curve).
 //
 // A packed point tensor is (batch, 24, n) 32-bit words (see field.cuh), a
 // flag tensor (batch, n) bytes. Every kernel is built on zk::ec_add, the
@@ -49,7 +51,9 @@ namespace {
 
 constexpr int kThreads = 128;
 
-// o = p + q, elementwise over batch·n.
+// o = p + q, elementwise over batch·n, on curve C (zk::Bn254 or
+// zk::Pallas).
+template <class C>
 __global__ void __launch_bounds__(kThreads)
 ec_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
               uint32_t* __restrict__ o, int64_t batch, int64_t n) {
@@ -59,7 +63,7 @@ ec_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
   zk::Pt x, y, s;
   zk::load_pt(p + b * 24 * n, n, e, x);
   zk::load_pt(q + b * 24 * n, n, e, y);
-  zk::ec_add(x, y, s);
+  zk::ec_add<C>(x, y, s);
   zk::store_pt(o + b * 24 * n, n, e, s);
 }
 
@@ -443,11 +447,16 @@ unsigned grid(int64_t work, int threads) {
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError().
+// curve: 0 = BN254 G1, 1 = Pasta pallas.
 extern "C" int zk_ec_add(const void* p, const void* q, void* o,
-                         long long batch, long long n, void* stream) {
+                         long long batch, long long n, int curve,
+                         void* stream) {
   if (batch * n == 0) return 0;
-  ec_add_kernel<<<grid(batch * n, kThreads), kThreads, 0,
-                  (cudaStream_t)stream>>>(
+  if (curve != 0 && curve != 1) return (int)cudaErrorInvalidValue;
+  void (*kernel)(const uint32_t*, const uint32_t*, uint32_t*, int64_t,
+                 int64_t) = curve == 0 ? ec_add_kernel<zk::Bn254>
+                                       : ec_add_kernel<zk::Pallas>;
+  kernel<<<grid(batch * n, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)o, batch, n);
   return (int)cudaGetLastError();
 }

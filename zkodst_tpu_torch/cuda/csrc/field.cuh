@@ -1,4 +1,6 @@
-// BN254 field and G1 arithmetic shared by every kernel of the port.
+// Field and curve arithmetic shared by every kernel of the port: BN254's
+// two fields and G1, and the Pasta fields and the pallas curve of the IPA
+// backend.
 //
 // A field element is 8 little-endian 32-bit limbs holding the canonical
 // Montgomery value a·2^256 mod p (the same value the JAX reference keeps in
@@ -21,9 +23,13 @@
 // differences and the final conditional subtraction are add.cc / sub.cc
 // chains on the card too: with the 64-bit C form there instead, the EC
 // kernels took 16–55% longer on an H100 and the multiply-bound chain and
-// NTT kernels 13–28% (PERF.md §6). p < 2^254 for both
-// moduli, so the running sum stays below 2^288 (nine words) and every
-// result before the final conditional subtraction is < 2p.
+// NTT kernels 13–28% (PERF.md §6). Every modulus here is below 2^255
+// (BN254's below 2^254, the two Pasta moduli just above it), and that is
+// all the bounds need: with a, b < p a row adds less than 2p·2^32 to a
+// sum below 2p, so the running sum stays below 2p·2^32 < 2^288 (nine
+// words), the sum after the row's shift is again below 2p, every result
+// before the final conditional subtraction is < 2p < 2^256, and a sum
+// a + b of two canonical values never carries out of the top word.
 //
 // Everything is inlined, so the complete addition and doubling keep their
 // points in registers: a call out of line would pass them through a stack
@@ -69,6 +75,37 @@ struct Fq {
     r[0] = 0xC58F0D9Du; r[1] = 0xD35D438Du; r[2] = 0xF5C70B3Du;
     r[3] = 0x0A78EB28u; r[4] = 0x7879462Cu; r[5] = 0x666EA36Fu;
     r[6] = 0x9A07DF2Fu; r[7] = 0x0E0A77C1u;
+  }
+};
+
+// PallasFp: the base field of the Pasta "pallas" curve (PALLAS_BASE).
+struct PallasFp {
+  static constexpr uint32_t INV = 0xFFFFFFFFu;  // p ≡ 1 mod 2^32
+  ZK_HD static void load(uint32_t p[8]) {
+    p[0] = 0x00000001u; p[1] = 0x992D30EDu; p[2] = 0x094CF91Bu;
+    p[3] = 0x224698FCu; p[4] = 0x00000000u; p[5] = 0x00000000u;
+    p[6] = 0x00000000u; p[7] = 0x40000000u;
+  }
+  ZK_HD static void one(uint32_t r[8]) {
+    r[0] = 0xFFFFFFFDu; r[1] = 0x34786D38u; r[2] = 0xE41914ADu;
+    r[3] = 0x992C350Bu; r[4] = 0xFFFFFFFFu; r[5] = 0xFFFFFFFFu;
+    r[6] = 0xFFFFFFFFu; r[7] = 0x3FFFFFFFu;
+  }
+};
+
+// PallasFr: the scalar field of pallas, the base field of vesta
+// (VESTA_BASE).
+struct PallasFr {
+  static constexpr uint32_t INV = 0xFFFFFFFFu;  // p ≡ 1 mod 2^32
+  ZK_HD static void load(uint32_t p[8]) {
+    p[0] = 0x00000001u; p[1] = 0x8C46EB21u; p[2] = 0x0994A8DDu;
+    p[3] = 0x224698FCu; p[4] = 0x00000000u; p[5] = 0x00000000u;
+    p[6] = 0x00000000u; p[7] = 0x40000000u;
+  }
+  ZK_HD static void one(uint32_t r[8]) {
+    r[0] = 0xFFFFFFFDu; r[1] = 0x5B2B3E9Cu; r[2] = 0xE3420567u;
+    r[3] = 0x992C350Bu; r[4] = 0xFFFFFFFFu; r[5] = 0xFFFFFFFFu;
+    r[6] = 0xFFFFFFFFu; r[7] = 0x3FFFFFFFu;
   }
 };
 
@@ -346,13 +383,40 @@ ZK_HD void butterfly(uint32_t u[8], uint32_t v[8], const uint32_t w[8]) {
   for (int i = 0; i < 8; ++i) u[i] = s[i];
 }
 
-// A projective G1 point (X : Y : Z); the identity is (0 : 1 : 0).
+// A projective point (X : Y : Z); the identity is (0 : 1 : 0).
 struct Pt {
   uint32_t x[8], y[8], z[8];
 };
 
+// The curves y² = x³ + b, a = 0: the field of the coordinates and
+// b3 = 3·b, the one constant of the complete formulas, as a chain of
+// additions.
+struct Bn254 {                      // BN254 G1: b = 3
+  using F = Fq;
+  ZK_HD static void mul_b3(const uint32_t a[8], uint32_t r[8]) {
+    uint32_t a2[8], a4[8], a8[8];   // 9a = 8a + a
+    add_mod<Fq>(a, a, a2);
+    add_mod<Fq>(a2, a2, a4);
+    add_mod<Fq>(a4, a4, a8);
+    add_mod<Fq>(a8, a, r);
+  }
+};
+
+struct Pallas {                     // Pasta pallas: b = 5
+  using F = PallasFp;
+  ZK_HD static void mul_b3(const uint32_t a[8], uint32_t r[8]) {
+    uint32_t a2[8], a3[8], a6[8], a12[8];   // 15a = 12a + 3a
+    add_mod<F>(a, a, a2);
+    add_mod<F>(a2, a, a3);
+    add_mod<F>(a3, a3, a6);
+    add_mod<F>(a6, a6, a12);
+    add_mod<F>(a12, a3, r);
+  }
+};
+
+template <class C = Bn254>
 ZK_HD void set_identity(Pt& p) {
-  Fq::one(p.y);                     // Y = 1 in Montgomery form
+  C::F::one(p.y);                   // Y = 1 in Montgomery form
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     p.x[i] = 0;
@@ -360,68 +424,64 @@ ZK_HD void set_identity(Pt& p) {
   }
 }
 
-ZK_HD void mul9(const uint32_t a[8], uint32_t r[8]) {
-  uint32_t a2[8], a4[8], a8[8];
-  add_mod<Fq>(a, a, a2);
-  add_mod<Fq>(a2, a2, a4);
-  add_mod<Fq>(a4, a4, a8);
-  add_mod<Fq>(a8, a, r);
-}
-
 // The complete addition and doubling are written once, over a `Layer`
-// that computes one layer of independent products r[k] = a[k]·b[k] in Fq.
-// SerialLayer runs them one after another in one thread (ptxas overlaps
-// their carry chains); ec.cu's warp layer gives each product its own lane.
+// that computes one layer of independent products r[k] = a[k]·b[k] in the
+// curve's field. SerialLayer runs them one after another in one thread
+// (ptxas overlaps their carry chains); ec.cu's warp layer gives each
+// product its own lane.
+template <class M = Fq>
 struct SerialLayer {
   template <int N>
   ZK_HD void operator()(const uint32_t* const (&a)[N],
                         const uint32_t* const (&b)[N],
                         uint32_t* const (&r)[N]) const {
 #pragma unroll
-    for (int k = 0; k < N; ++k) mont_mul<Fq>(a[k], b[k], r[k]);
+    for (int k = 0; k < N; ++k) mont_mul<M>(a[k], b[k], r[k]);
   }
 };
 
-// Complete addition, RCB16 Alg. 7 for a = 0 with b3 = 3·3 = 9, in the
-// operation sequence of zkodst_tpu/pallas/ec.py:_ec_add_vecs: 12 products
-// in two layers of 6. Valid for every input pair, including identity and
-// P + P; symmetric in (p, q). o may alias p or q.
-template <class Layer>
+// Complete addition, RCB16 Alg. 7 for a = 0 (b3 = 9 on BN254, 15 on
+// pallas), in the operation sequence of
+// zkodst_tpu/pallas/ec.py:_ec_add_vecs: 12 products in two layers of 6.
+// Valid for every input pair, including identity and P + P; symmetric in
+// (p, q). o may alias p or q.
+template <class Layer, class C = Bn254>
 ZK_HD void ec_add_by(const Layer& mul, const Pt& p, const Pt& q, Pt& o) {
+  using F = typename C::F;
   uint32_t sp[3][8], sq[3][8];
-  add_mod<Fq>(p.x, p.y, sp[0]);
-  add_mod<Fq>(p.y, p.z, sp[1]);
-  add_mod<Fq>(p.x, p.z, sp[2]);
-  add_mod<Fq>(q.x, q.y, sq[0]);
-  add_mod<Fq>(q.y, q.z, sq[1]);
-  add_mod<Fq>(q.x, q.z, sq[2]);
+  add_mod<F>(p.x, p.y, sp[0]);
+  add_mod<F>(p.y, p.z, sp[1]);
+  add_mod<F>(p.x, p.z, sp[2]);
+  add_mod<F>(q.x, q.y, sq[0]);
+  add_mod<F>(q.y, q.z, sq[1]);
+  add_mod<F>(q.x, q.z, sq[2]);
   uint32_t t0[8], t1[8], t2[8], u1[8], u2[8], u3[8];
   const uint32_t* const a1[6] = {p.x, p.y, p.z, sp[0], sp[1], sp[2]};
   const uint32_t* const b1[6] = {q.x, q.y, q.z, sq[0], sq[1], sq[2]};
   uint32_t* const r1[6] = {t0, t1, t2, u1, u2, u3};
   mul(a1, b1, r1);
   uint32_t s[8], t3[8], t4[8], w3[8];
-  add_mod<Fq>(t0, t1, s);
-  sub_mod<Fq>(u1, s, t3);           // x1y2 + x2y1
-  add_mod<Fq>(t1, t2, s);
-  sub_mod<Fq>(u2, s, t4);           // y1z2 + y2z1
-  add_mod<Fq>(t0, t2, s);
-  sub_mod<Fq>(u3, s, w3);           // x1z2 + x2z1
+  add_mod<F>(t0, t1, s);
+  sub_mod<F>(u1, s, t3);            // x1y2 + x2y1
+  add_mod<F>(t1, t2, s);
+  sub_mod<F>(u2, s, t4);            // y1z2 + y2z1
+  add_mod<F>(t0, t2, s);
+  sub_mod<F>(u3, s, w3);            // x1z2 + x2z1
   uint32_t t0_3[8], t2_9[8], z3p[8], t1m[8], y3p[8];
-  add_mod<Fq>(t0, t0, s);
-  add_mod<Fq>(s, t0, t0_3);         // 3·x1x2
-  mul9(t2, t2_9);                   // b3·z1z2
-  add_mod<Fq>(t1, t2_9, z3p);
-  sub_mod<Fq>(t1, t2_9, t1m);
-  mul9(w3, y3p);                    // b3·(x1z2 + x2z1)
+  add_mod<F>(t0, t0, s);
+  add_mod<F>(s, t0, t0_3);         // 3·x1x2
+  C::mul_b3(t2, t2_9);             // b3·z1z2
+  add_mod<F>(t1, t2_9, z3p);
+  sub_mod<F>(t1, t2_9, t1m);
+  C::mul_b3(w3, y3p);             // b3·(x1z2 + x2z1)
   uint32_t m[6][8];
   const uint32_t* const a2[6] = {t3, t4, y3p, t1m, z3p, t0_3};
   const uint32_t* const b2[6] = {t1m, y3p, t0_3, z3p, t4, t3};
   uint32_t* const r2[6] = {m[0], m[1], m[2], m[3], m[4], m[5]};
   mul(a2, b2, r2);
-  sub_mod<Fq>(m[0], m[1], o.x);
-  add_mod<Fq>(m[2], m[3], o.y);
-  add_mod<Fq>(m[4], m[5], o.z);
+  sub_mod<F>(m[0], m[1], o.x);
+  add_mod<F>(m[2], m[3], o.y);
+  add_mod<F>(m[4], m[5], o.z);
 }
 
 // Complete doubling, RCB16 Alg. 9 for a = 0 with b3 = 9, in the operation
@@ -440,7 +500,7 @@ ZK_HD void ec_dbl_by(const Layer& mul, const Pt& p, Pt& o) {
   add_mod<Fq>(t0, t0, u);
   add_mod<Fq>(u, u, v);
   add_mod<Fq>(v, v, z3);            // 8·y²
-  mul9(t2, b3z2);                   // b3·z²
+  Bn254::mul_b3(t2, b3z2);          // b3·z²
   uint32_t x3[8];
   const uint32_t* const a2[2] = {b3z2, t1};
   const uint32_t* const b2[2] = {z3, z3};
@@ -460,11 +520,13 @@ ZK_HD void ec_dbl_by(const Layer& mul, const Pt& p, Pt& o) {
   add_mod<Fq>(xa, xa, o.x);
 }
 
+template <class C = Bn254>
 ZK_HD void ec_add(const Pt& p, const Pt& q, Pt& o) {
-  ec_add_by(SerialLayer(), p, q, o);
+  ec_add_by<SerialLayer<typename C::F>, C>(SerialLayer<typename C::F>(), p,
+                                           q, o);
 }
 
-ZK_HD void ec_dbl(const Pt& p, Pt& o) { ec_dbl_by(SerialLayer(), p, o); }
+ZK_HD void ec_dbl(const Pt& p, Pt& o) { ec_dbl_by(SerialLayer<>(), p, o); }
 
 // Packed point tensors are (batch, 24, n) 32-bit words: row c·8 + i holds
 // limb i of coordinate c, so neighbouring threads read neighbouring words.

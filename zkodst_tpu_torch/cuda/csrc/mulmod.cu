@@ -1,4 +1,5 @@
-// Elementwise field kernels and the prefix product, for Fr and Fq.
+// Elementwise field kernels and the prefix product, for BN254's Fr and Fq;
+// the elementwise kernels also for the two Pasta fields (IPA backend).
 //
 //   zk_mulmod        <- zkodst_tpu/pallas/mulmod.py:_mulmod_kernel
 //   zk_addmod        <- zkodst_tpu/pallas/mulmod.py:_addmod_kernel
@@ -415,6 +416,17 @@ void binop(const void* a, const void* b, void* o, long long n,
       (I)a_div, (I)b_period, (I)b_div);
 }
 
+template <class M, Op kOp>
+int launch_field(const void* a, const void* b, void* o, long long n,
+                 long long a_period, long long a_div, long long b_period,
+                 long long b_div, cudaStream_t s) {
+  if (n <= 0x7FFFFFFFLL)
+    binop<M, kOp, uint32_t>(a, b, o, n, a_period, a_div, b_period, b_div, s);
+  else
+    binop<M, kOp, int64_t>(a, b, o, n, a_period, a_div, b_period, b_div, s);
+  return (int)cudaGetLastError();
+}
+
 template <Op kOp>
 int launch_binop(const void* a, const void* b, void* o, long long n,
                  long long a_period, long long a_div, long long b_period,
@@ -423,26 +435,25 @@ int launch_binop(const void* a, const void* b, void* o, long long n,
   if (a_period <= 0 || b_period <= 0 || a_div <= 0 || b_div <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const bool narrow = n <= 0x7FFFFFFFLL;
-  if (field == 0 && narrow)
-    binop<zk::Fr, kOp, uint32_t>(a, b, o, n, a_period, a_div, b_period,
-                                 b_div, s);
-  else if (field == 0)
-    binop<zk::Fr, kOp, int64_t>(a, b, o, n, a_period, a_div, b_period,
-                                b_div, s);
-  else if (narrow)
-    binop<zk::Fq, kOp, uint32_t>(a, b, o, n, a_period, a_div, b_period,
-                                 b_div, s);
-  else
-    binop<zk::Fq, kOp, int64_t>(a, b, o, n, a_period, a_div, b_period,
-                                b_div, s);
-  return (int)cudaGetLastError();
+  switch (field) {
+    case 0: return launch_field<zk::Fr, kOp>(a, b, o, n, a_period, a_div,
+                                             b_period, b_div, s);
+    case 1: return launch_field<zk::Fq, kOp>(a, b, o, n, a_period, a_div,
+                                             b_period, b_div, s);
+    case 2: return launch_field<zk::PallasFp, kOp>(a, b, o, n, a_period,
+                                                   a_div, b_period, b_div, s);
+    case 3: return launch_field<zk::PallasFr, kOp>(a, b, o, n, a_period,
+                                                   a_div, b_period, b_div, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError().
-// field: 0 = Fr, 1 = Fq. n output elements; an operand holds `period`
+// field: 0 = Fr, 1 = Fq, 2 = Pasta PallasFp, 3 = Pasta PallasFr (the
+// prefix product takes 0 and 1 alone). n output elements; an operand
+// holds `period`
 // elements and element i of the output reads its element
 // (i / div) mod period (period n, div 1: one per output element;
 // period 1: one for all).
@@ -465,6 +476,7 @@ extern "C" int zk_chain_cumprod(const void* x, void* o, long long W,
                                 long long S, int reverse, int field,
                                 void* stream) {
   if (W <= 0 || S <= 0) return 0;
+  if (field != 0 && field != 1) return (int)cudaErrorInvalidValue;
   const long long R = S >= kChunk ? 1 : (kChunk / S < W ? kChunk / S : W);
   const unsigned blocks = (unsigned)((W + R - 1) / R);
   cudaStream_t s = (cudaStream_t)stream;
@@ -489,6 +501,7 @@ extern "C" int zk_cumprod_tile(const void* x, void* o, long long m,
                                int reverse, int exclusive, int threads,
                                int cluster, int field, void* stream) {
   if (m <= 0) return 0;
+  if (field != 0 && field != 1) return (int)cudaErrorInvalidValue;
   if (m > kTileMax || stride < 1 || offset < 0 || threads < 32 ||
       threads % 32 || cluster < 1 ||
       cluster * (threads / 32) > kTileMaxWarps ||

@@ -132,12 +132,14 @@ int launch_tail(const void* x, void* o, const void* pw, long long batch,
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError().
-// field: 0 = Fr, 1 = Fq. n and T are powers of two, T ≤ n, T ≤ 4096.
+// field: 0 = Fr, 1 = Fq (BN254 alone). n and T are powers of two, T ≤ n,
+// T ≤ 4096.
 // x (batch, n, 8) natural order -> o: bit-reversed, then stages h < T.
 extern "C" int zk_ntt_tail(const void* x, void* o, const void* pw,
                            long long batch, long long n, long long T,
                            int field, void* stream) {
   if (batch * n == 0) return 0;
+  if (field != 0 && field != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return field == 0 ? launch_tail<zk::Fr>(x, o, pw, batch, n, T, s)
                     : launch_tail<zk::Fq>(x, o, pw, batch, n, T, s);
@@ -148,6 +150,7 @@ extern "C" int zk_ntt_head(const void* x, void* o, const void* pw,
                            long long batch, long long n, long long h,
                            int field, void* stream) {
   if (batch * n == 0) return 0;
+  if (field != 0 && field != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const long long work = batch * (n / 2);
   const unsigned blocks = (unsigned)((work + kHeadThreads - 1) / kHeadThreads);

@@ -7,6 +7,8 @@ the launch fails — there is no fallback from a kernel to its twin. Every
 accepted launch adds one to its entry point's count (``build.call``);
 :func:`reset_counts` and :func:`counts` read them per wrapper;
 :func:`copies` reads the binop operands copied whole since the reset.
+The Pasta instantiations of kernels 1–3 and 8 (the IPA backend's second
+curve) are counted apart (:data:`PASTA_WRAPPERS`, :func:`pasta_counts`).
 """
 
 from __future__ import annotations
@@ -29,6 +31,15 @@ WRAPPERS = {
     "scale_reduce": (ec.scale_reduce, "zk_scale_reduce"),
 }
 
+# the Pasta instantiations: wrapper[field or curve] -> (wrapper, the count's
+# key); their launches are not among the twelve's
+PASTA_WRAPPERS = {
+    f"{name}[{tag}]": (fn, f"{entry}[{tag}]")
+    for tag in ("pasta_fp", "pasta_fr")
+    for name, (fn, entry) in WRAPPERS.items()
+    if name in ("mulmod", "addmod", "submod")}
+PASTA_WRAPPERS["ec_add[pallas]"] = (ec.ec_add, "zk_ec_add[pallas]")
+
 
 def reset_counts() -> None:
     build.LAUNCHES.clear()
@@ -39,6 +50,11 @@ def reset_counts() -> None:
 def counts() -> dict:
     return {name: build.LAUNCHES.get(entry, 0)
             for name, (_, entry) in WRAPPERS.items()}
+
+
+def pasta_counts() -> dict:
+    return {name: build.LAUNCHES.get(entry, 0)
+            for name, (_, entry) in PASTA_WRAPPERS.items()}
 
 
 def copies() -> dict:

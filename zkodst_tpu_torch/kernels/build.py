@@ -37,7 +37,7 @@ SIGNATURES = {
         "zk_cumprod_tile": [_P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _I, _P],
     },
     "ec": {
-        "zk_ec_add": [_P, _P, _P, _LL, _LL, _P],
+        "zk_ec_add": [_P, _P, _P, _LL, _LL, _I, _P],
         "zk_seg_step": [_P, _P, _P, _P, _LL, _LL, _P],
         "zk_chain_scan": [_P, _P, _P, _LL, _LL, _LL, _P],
         "zk_seg_scan_tiles": [_P, _P, _P, _LL, _LL, _I, _I, _I, _P],
@@ -60,7 +60,9 @@ class Built:
 _BUILT: Built | None = None
 
 # Launches per C entry point since the last reset: incremented in call(),
-# right after a launch that the runtime accepted, and nowhere else.
+# right after a launch that the runtime accepted, and nowhere else. A
+# launch of a Pasta instantiation counts under "<entry>[<field or curve>]"
+# (call's `tag`), apart from the BN254 launches of the same entry.
 LAUNCHES: Dict[str, int] = {}
 
 
@@ -114,13 +116,15 @@ def build() -> Built:
     return _BUILT
 
 
-def call(lib: str, fn: str, *args) -> None:
+def call(lib: str, fn: str, *args, tag=None) -> None:
     """Launch `fn` of source `lib` on the current stream; raise if the
-    launch was refused (cudaGetLastError after the launch)."""
+    launch was refused (cudaGetLastError after the launch). A `tag` counts
+    the launch under ``fn[tag]``."""
     import torch
 
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(build().libs[lib], fn)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed with cudaError {err}")
-    LAUNCHES[fn] = LAUNCHES.get(fn, 0) + 1
+    key = fn if tag is None else f"{fn}[{tag}]"
+    LAUNCHES[key] = LAUNCHES.get(key, 0) + 1

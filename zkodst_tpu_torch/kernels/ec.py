@@ -1,5 +1,7 @@
-"""Kernels 8–12: BN254 G1 kernels on packed points (CUDA source
-``cuda/csrc/ec.cu``), each beside its plain PyTorch twin.
+"""Kernels 8–12: G1 kernels on packed points (CUDA source
+``cuda/csrc/ec.cu``), each beside its plain PyTorch twin. All are BN254's;
+kernel 8 (``ec_add``) also runs on the Pasta pallas curve (its launches
+count as ``zk_ec_add[pallas]``).
 
 Packed points are ``(batch, 24, n)`` int32 (see :mod:`..ops.curve`), flags
 ``(batch, n)`` bool. The twins repeat the kernels' association of
@@ -27,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.curve import add_limbs, dbl_limbs, lanes64
+from ..ops.curve import BN254, Curve, add_limbs, dbl_limbs, lanes64
 from ..ops.field import to_i32
 from .build import call
 
@@ -70,20 +72,23 @@ def _flags(f: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 # -- kernel 8: o = p + q ----------------------------------------------------
 
-def ec_add_plain(p, q):
-    return _packed(add_limbs(lanes64(p), lanes64(q)))
+def ec_add_plain(p, q, curve: Curve = BN254):
+    return _packed(add_limbs(lanes64(p), lanes64(q), curve))
 
 
-def ec_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+def ec_add(p: torch.Tensor, q: torch.Tensor,
+           curve: Curve = BN254) -> torch.Tensor:
+    """p + q on `curve` (BN254 G1 or Pasta pallas)."""
     _check_points(p, q)
     if p.shape != q.shape:
         raise ValueError(f"ec_add shapes {tuple(p.shape)} {tuple(q.shape)}")
     if p.device.type == "cpu":
-        return ec_add_plain(p, q)
+        return ec_add_plain(p, q, curve)
     p, q = p.contiguous(), q.contiguous()
     out = torch.empty_like(p)
     call("ec", "zk_ec_add", p.data_ptr(), q.data_ptr(), out.data_ptr(),
-         p.shape[0], p.shape[2])
+         p.shape[0], p.shape[2], curve.kernel_id,
+         tag=None if curve.kernel_id == 0 else curve.name)
     return out
 
 

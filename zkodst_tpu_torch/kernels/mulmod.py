@@ -1,6 +1,9 @@
 """Kernels 1–5: elementwise field products, sums and differences, and the
 prefix product (CUDA source ``cuda/csrc/mulmod.cu``), each beside its
-plain PyTorch twin.
+plain PyTorch twin. Kernels 1–3 take any of the four fields of
+:mod:`..ops.field` (BN254's two and the two Pasta fields: a launch on a
+Pasta field counts as ``zk_mulmod[pasta_fp]`` and so on); kernels 4 and 5
+take BN254's alone.
 
 =====================  ===============================================
 wrapper                replaces (``zkodst_tpu/pallas/mulmod.py``)
@@ -112,6 +115,18 @@ def _into(out, result: torch.Tensor) -> torch.Tensor:
     return result if out is None else out.copy_(result)
 
 
+def field_tag(F: Field):
+    """The launch count's tag of a binop on F: None for BN254's fields, the
+    field's name for a Pasta field."""
+    return None if F.kernel_id < 2 else F.name
+
+
+def _bn254_only(name: str, F: Field) -> None:
+    if F.kernel_id > 1:
+        raise ValueError(f"{name} is built for BN254's fields alone, not "
+                         f"{F.name}")
+
+
 def _binop(entry: str, F: Field, a: torch.Tensor, b: torch.Tensor,
            out=None) -> torch.Tensor:
     """Launch `entry` on broadcast operands a, b of one shape."""
@@ -120,7 +135,7 @@ def _binop(entry: str, F: Field, a: torch.Tensor, b: torch.Tensor,
         return out
     (a, pa, da), (b, pb, db) = _operand(a), _operand(b)
     call("mulmod", entry, a.data_ptr(), b.data_ptr(), out.data_ptr(),
-         out.numel() // 8, pa, da, pb, db, F.kernel_id)
+         out.numel() // 8, pa, da, pb, db, F.kernel_id, tag=field_tag(F))
     return out
 
 
@@ -202,6 +217,7 @@ def chain_cumprod(F: Field, x: torch.Tensor, W: int,
                          f"W={W}, got {tuple(x.shape)}")
     if x.device.type == "cpu":
         return chain_cumprod_plain(F, x, W, reverse)
+    _bn254_only("chain_cumprod", F)
     x = _ready(x)
     out = torch.empty_like(x)
     call("mulmod", "zk_chain_cumprod", x.data_ptr(), out.data_ptr(), W,
@@ -280,6 +296,7 @@ def cumprod_tile(F: Field, x: torch.Tensor, m=None, stride: int = 1,
     if x.device.type == "cpu":
         return cumprod_tile_plain(F, x, m, stride, offset, reverse,
                                   exclusive, out)
+    _bn254_only("cumprod_tile", F)
     x = _ready(x)
     out = _output("cumprod_tile", out, (m, 8), x.device)
     if m == 0:

@@ -1,4 +1,5 @@
-"""Prime-field arithmetic on limb tensors (BN254 Fr and Fq).
+"""Prime-field arithmetic on limb tensors (BN254 Fr and Fq, and the two
+Pasta fields of the IPA backend).
 
 Counterpart of ``zkodst_tpu/ops/field.py``. A field element is the
 canonical Montgomery value a·2^256 mod p in 8 little-endian 32-bit limbs;
@@ -86,18 +87,30 @@ def _split16(a: torch.Tensor) -> torch.Tensor:
     return torch.stack([a & MASK16, a >> 16], dim=-1).flatten(-2)
 
 
+# per (length, device): arange(length), and the column of digit product
+# a16_i·b16_j (i + j) in the plain Montgomery product
+_INDEX: dict = {}
+
+
+def _index(kind: str, n: int, device) -> torch.Tensor:
+    key = (kind, n, str(device))
+    if key not in _INDEX:
+        i = torch.arange(n, device=device)
+        _INDEX[key] = i if kind == "arange" else \
+            (i[:, None] + i[None, :]).reshape(-1)
+    return _INDEX[key]
+
+
 def _carries(gen: torch.Tensor, prop: torch.Tensor) -> torch.Tensor:
     """Carry out of each limb of a ripple chain in which limb i generates
-    (`gen`) or passes on (`prop`) a carry, never both, by a Kogge–Stone
-    prefix over the limbs. (..., L) bool -> (..., L) int64."""
-    g, p = gen, prop
-    d = 1
-    while d < g.shape[-1]:
-        pad = torch.zeros_like(g[..., :d])
-        g = g | (p & torch.cat([pad, g[..., :-d]], -1))
-        p = p & torch.cat([pad, p[..., :-d]], -1)
-        d *= 2
-    return g.to(torch.int64)
+    (`gen`) or passes on (`prop`) a carry, never both: the carry out of
+    limb i is `gen` at the nearest limb at or below i that does not pass
+    one on (a running maximum of those limbs' positions), or none.
+    (..., L) bool -> (..., L) int64."""
+    idx = _index("arange", gen.shape[-1], gen.device)
+    pos = torch.cummax(torch.where(prop, -1, idx), dim=-1).values
+    return (torch.gather(gen, -1, pos.clamp(min=0)) & (pos >= 0)) \
+        .to(torch.int64)
 
 
 def _into(c: torch.Tensor) -> torch.Tensor:
@@ -119,15 +132,16 @@ def _sub_limbs(a: torch.Tensor, b: torch.Tensor):
     return (d - _into(c)) & MASK32, c[..., -1].bool()
 
 
-def _carry(t: torch.Tensor, bits: int) -> torch.Tensor:
-    """Propagate carries of nonnegative int64 columns in place (ripple);
-    the carry out of the last column is dropped."""
-    mask = (1 << bits) - 1
-    for i in range(t.shape[-1] - 1):
-        t[..., i + 1] += t[..., i] >> bits
-        t[..., i] &= mask
-    t[..., -1] &= mask
-    return t
+def _carry16(t: torch.Tensor) -> torch.Tensor:
+    """16-bit digits of nonnegative int64 columns below 2^38 whose value is
+    below 2^(16·columns): three passes that move each column's carry up
+    (leaving every column at most 2^16), then the remaining carries of one
+    by :func:`_carries`. The value has no carry out of the top column, so
+    none is dropped."""
+    for _ in range(3):
+        t = (t & MASK16) + torch.nn.functional.pad((t >> 16)[..., :-1],
+                                                   (1, 0))
+    return (t + _into(_carries(t > MASK16, t == MASK16))) & MASK16
 
 
 def _scan_length(n: int, W: int) -> int:
@@ -152,6 +166,7 @@ class Field:
         self.pinv16 = (-pow(p, -1, 1 << 16)) % (1 << 16)
         self._p32 = [int(x) for x in self.P]
         self._p16 = [(p >> (16 * i)) & MASK16 for i in range(2 * L)]
+        self._consts: dict = {}
 
     def __repr__(self):
         return f"Field({self.name})"
@@ -280,8 +295,15 @@ class Field:
         return self.sub(torch.zeros(L, dtype=torch.int32, device=a.device), a)
 
     # -- plain arithmetic on int64 limb values ---------------------------------
-    def _p64(self, device) -> torch.Tensor:
-        return torch.tensor(self._p32, dtype=torch.int64, device=device)
+    def _p64(self, device, digits: int = 32) -> torch.Tensor:
+        """p as int64 limb values (32-bit limbs, or 16-bit digits), made
+        once per device."""
+        key = (digits, str(device))
+        if key not in self._consts:
+            self._consts[key] = torch.tensor(
+                self._p32 if digits == 32 else self._p16, dtype=torch.int64,
+                device=device)
+        return self._consts[key]
 
     def reduce_once64(self, t):
         """t - p if t >= p else t, for t < 2p."""
@@ -297,9 +319,11 @@ class Field:
                            _add_limbs(d, self._p64(d.device)), d)
 
     def mont_mul64(self, a, b):
-        """Montgomery product of int64 limb values (CIOS on 16-bit digits:
-        step i adds a_i·b and m_i·p at digit i and carries digit i on, so
-        no column exceeds 2^38). Long inputs run in chunks of
+        """Montgomery product of int64 limb values on 16-bit digits (SOS):
+        the 32 columns of a·b (one outer product and one index_add), then
+        16 reduction steps, step i adding m_i·p at digit i and carrying
+        digit i on, so no column exceeds 2^38; the high 16 columns are the
+        result before the final subtraction. Long inputs run in chunks of
         :data:`MUL_CHUNK` elements for their device."""
         a, b = torch.broadcast_tensors(a, b)
         chunk = MUL_CHUNK.get(a.device.type, MUL_CHUNK["cuda"])
@@ -311,18 +335,25 @@ class Field:
                              ).reshape(a.shape)
         a16, b16 = _split16(a), _split16(b)
         n16 = 2 * L
+        dev = a.device
         t = torch.zeros(a16.shape[:-1] + (2 * n16,), dtype=torch.int64,
-                        device=a.device)
-        p16 = torch.tensor(self._p16, dtype=torch.int64, device=a.device)
+                        device=dev)
+        t.index_add_(-1, _index("diag", n16, dev),
+                     (a16[..., :, None] * b16[..., None, :]).flatten(-2))
+        p16 = self._p64(dev, 16)
         for i in range(n16):
-            t[..., i:i + n16] += a16[..., i:i + 1] * b16
-            m = ((t[..., i] & MASK16) * self.pinv16) & MASK16
+            m = (t[..., i] * self.pinv16) & MASK16
             t[..., i:i + n16] += m[..., None] * p16
             t[..., i + 1] += t[..., i] >> 16
-        r16 = _carry(t[..., n16:2 * n16].clone(), 16)
+        r16 = _carry16(t[..., n16:])
         r = r16[..., 0::2] | (r16[..., 1::2] << 16)
         return self.reduce_once64(r)
 
 
 FR = Field(pyfield.BN254_FR, "bn254_fr", 0)
 FQ = Field(pyfield.BN254_FQ, "bn254_fq", 1)
+# Pasta: the pallas curve's base field (point coordinates) and its scalar
+# field (the vesta curve's base), as the reference's PASTA_FP / PASTA_FR.
+# Their kernels are the binops alone (kernels 1–3).
+PASTA_FP = Field(pyfield.PALLAS_BASE, "pasta_fp", 2)
+PASTA_FR = Field(pyfield.VESTA_BASE, "pasta_fr", 3)

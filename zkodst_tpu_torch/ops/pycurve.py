@@ -1,16 +1,18 @@
 """Host-side BN254 curve reference arithmetic (Python ints).
 
-A copy of ``zkodst_tpu/ops/pycurve.py`` without the Pasta curve: the affine
-G1/G2 oracle used by the SRS setup (window tables, [τ]G2), point
-compression and the tests.
+A copy of ``zkodst_tpu/ops/pycurve.py``: the affine G1/G2 oracle used by
+the SRS setup (window tables, [τ]G2), point compression and the tests,
+and the Pasta "pallas" curve of the IPA backend.
 
 G1: y^2 = x^3 + 3 over Fq, generator (1, 2).
 G2: y^2 = x^3 + 3/(9+u) over Fq2 = Fq[u]/(u^2+1).
+PASTA_G1: y^2 = x^3 + 5 over PALLAS_BASE, scalar field VESTA_BASE,
+cofactor 1, generator (−1, 2).
 """
 
 from __future__ import annotations
 
-from .pyfield import FQ, FR
+from .pyfield import FQ, FR, PALLAS_BASE, VESTA_BASE
 
 P = FQ.p
 R_ORDER = FR.p  # group order of G1/G2 subgroups
@@ -63,10 +65,12 @@ class Group:
     """Short-Weierstrass group ops in affine coordinates; points are (x, y)
     tuples or None for the identity."""
 
-    def __init__(self, add, sub, mul, inv, neg, smul, zero, one, b):
+    def __init__(self, add, sub, mul, inv, neg, smul, zero, one, b,
+                 order: int = R_ORDER):
         self.fadd, self.fsub, self.fmul = add, sub, mul
         self.finv, self.fneg, self.fsmul = inv, neg, smul
         self.fzero, self.fone, self.b = zero, one, b
+        self.order = order
 
     def is_on_curve(self, pt) -> bool:
         if pt is None:
@@ -145,7 +149,7 @@ class Group:
         return (X3, Y3, Z3)
 
     def mul(self, p, k: int):
-        k %= R_ORDER
+        k %= self.order
         if p is None or k == 0:
             return None
         acc, base = None, (p[0], p[1], self.fone)
@@ -173,3 +177,15 @@ G1 = Group(lambda a, b: (a + b) % P, lambda a, b: (a - b) % P,
 
 G2 = Group(fq2_add, fq2_sub, fq2_mul, fq2_inv, fq2_neg, fq2_smul,
            FQ2_ZERO, FQ2_ONE, B2)
+
+_PP = PALLAS_BASE
+PASTA_G1 = Group(lambda a, b: (a + b) % _PP, lambda a, b: (a - b) % _PP,
+                 lambda a, b: a * b % _PP, lambda a: pow(a, _PP - 2, _PP),
+                 lambda a: (-a) % _PP, lambda a, k: a * k % _PP,
+                 0, 1, 5, order=VESTA_BASE)
+PASTA_G1_GEN = (_PP - 1, 2)
+
+if not PASTA_G1.is_on_curve(PASTA_G1_GEN):
+    raise AssertionError("Pasta generator not on curve")
+if PASTA_G1.mul(PASTA_G1_GEN, VESTA_BASE - 1) != PASTA_G1.neg(PASTA_G1_GEN):
+    raise AssertionError("Pasta generator has wrong order")

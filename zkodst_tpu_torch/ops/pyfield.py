@@ -1,6 +1,6 @@
 """Host-side prime-field reference arithmetic (Python ints).
 
-A copy of ``zkodst_tpu/ops/pyfield.py`` restricted to BN254: the constants,
+A copy of ``zkodst_tpu/ops/pyfield.py``: the BN254 and Pasta constants,
 the Montgomery radix, roots of unity, square roots (point decompression)
 and the int oracles the port's tests and host code use.
 """
@@ -14,6 +14,11 @@ from functools import lru_cache
 # coordinates).
 BN254_FR = 0x30644E72E131A029B85045B68181585D2833E84879B9709143E1F593F0000001
 BN254_FQ = 0x30644E72E131A029B85045B68181585D97816A916871CA8D3C208C16D87CFD47
+
+# Pasta: the "pallas" curve's base field and its scalar field (the base
+# field of "vesta"); both are just above 2^254, below 2^255.
+PALLAS_BASE = 0x40000000000000000000000000000000224698FC094CF91B992D30ED00000001
+VESTA_BASE = 0x40000000000000000000000000000000224698FC0994A8DD8C46EB2100000001
 
 R_BITS = 256            # Montgomery radix R = 2^256
 

@@ -9,7 +9,8 @@ coset (``ext_selectors``, made on the device). With a ``cache_dir``,
 :func:`keygen` keeps the slow parts (σ maps, commitments, selectors) in
 ``pk_<fingerprint>.npz`` in the reference's format, so either package
 reads the other's file; :func:`from_numpy` turns such a file into this
-module's :class:`ProvingKey`.
+module's :class:`ProvingKey`. The params may be either commitment
+scheme's (:mod:`.pcs`); an IPA key's file is ``pk_ipa_<fingerprint>.npz``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from ..ops.field import FR, from_limbs16, to_limbs16
 from ..ops.pyfield import FR as PFR
 from . import pcs, srs
 from .domain import DELTA, Domain
+from .pcs import Params
 
 # permutation columns per grand-product chunk (constraint degree 2 + chunk
 # stays within the 4n extended domain)
@@ -171,13 +173,13 @@ def circuit_fingerprint(circ: CircuitDef) -> str:
     return h.hexdigest()
 
 
-def _key(params: srs.ParamsKZG, circ: CircuitDef, sigma_maps) -> ProvingKey:
+def _key(params: Params, circ: CircuitDef, sigma_maps) -> ProvingKey:
     """Everything but the commitments (left empty): the fixed and σ
     columns in both forms and the roots table, with one batched iNTT for
     all fixed columns and one for all σ. σ maps are built when None."""
     assert params.k == circ.k
     dom = Domain(circ.k)
-    dev = params.g1_lagrange.device
+    dev = pcs.device(params)
     roots = _roots_dev(dom, dev)
     perm_cols = perm_columns(circ)
     for d in range(1, len(perm_cols) + 1):
@@ -205,13 +207,14 @@ def _key(params: srs.ParamsKZG, circ: CircuitDef, sigma_maps) -> ProvingKey:
 _SELECTORS = ("l0", "llast", "lblind", "zh_inv")
 
 
-def keygen(params: srs.ParamsKZG, circ: CircuitDef, msm_window: int = 13,
+def keygen(params: Params, circ: CircuitDef, msm_window: int = 13,
            cache_dir: Optional[str] = None) -> ProvingKey:
-    """The proving key of `circ` on the SRS's device: its polynomials,
-    their commitments (full-width MSMs through kernels 8–12) and the
-    extended-coset selectors.
+    """The proving key of `circ` on the params' device: its polynomials,
+    their commitments (full-width MSMs through kernels 8–12, under the
+    params' scheme) and the extended-coset selectors.
 
     With `cache_dir`, the key is read from ``pk_<fingerprint>.npz`` there
+    (``pk_ipa_<fingerprint>.npz`` for IPA params: the commitments differ)
     (the polynomials are made again on the device), or made and written
     there when there is no such file; a file that cannot be read (one
     that lacks an array of the format among them) is made again and
@@ -219,7 +222,9 @@ def keygen(params: srs.ParamsKZG, circ: CircuitDef, msm_window: int = 13,
     if cache_dir is None:
         return _keygen(params, circ, msm_window)
     os.makedirs(cache_dir, exist_ok=True)
-    path = os.path.join(cache_dir, f"pk_{circuit_fingerprint(circ)}.npz")
+    tag = "ipa_" if pcs.is_ipa(params) else ""
+    path = os.path.join(cache_dir,
+                        f"pk_{tag}{circuit_fingerprint(circ)}.npz")
     if os.path.exists(path):
         try:
             with np.load(path, allow_pickle=False) as npz:
@@ -263,21 +268,20 @@ def _save(pk: ProvingKey, path: str) -> None:
     os.replace(tmp, path)
 
 
-def _keygen(params: srs.ParamsKZG, circ: CircuitDef,
+def _keygen(params: Params, circ: CircuitDef,
             msm_window: int) -> ProvingKey:
     pk = _key(params, circ, None)
-    pk.ext_selectors = Domain(circ.k).selectors_extended(
-        params.g1_lagrange.device)
+    pk.ext_selectors = Domain(circ.k).selectors_extended(pcs.device(params))
     names = sorted(pk.fixed_evals)
-    pk.vk.fixed_commitments = dict(zip(names, pcs.commit_evals_many(
-        params, torch.stack([pk.fixed_evals[nm] for nm in names]),
-        msm_window)))
-    pk.vk.sigma_commitments = pcs.commit_evals_many(
-        params, torch.stack(pk.sigma_evals), msm_window)
+    pk.vk.fixed_commitments = dict(zip(names, pcs.commit_columns(
+        params, [pk.fixed_evals[nm] for nm in names],
+        [pk.fixed_coeffs[nm] for nm in names], msm_window)))
+    pk.vk.sigma_commitments = pcs.commit_columns(
+        params, pk.sigma_evals, pk.sigma_coeffs, msm_window)
     return pk
 
 
-def from_numpy(npz, params: srs.ParamsKZG, circ: CircuitDef) -> ProvingKey:
+def from_numpy(npz, params: Params, circ: CircuitDef) -> ProvingKey:
     """The proving key from the reference's cached arrays (a loaded
     ``pk_<fingerprint>.npz``): σ maps (``sig_col``, ``sig_row``), the
     commitments (``*_comm_u32`` affine limbs, ``*_comm_flag`` 0 for the
@@ -297,6 +301,6 @@ def from_numpy(npz, params: srs.ParamsKZG, circ: CircuitDef) -> ProvingKey:
     pk.vk.sigma_commitments = [dec(pt, fl) for pt, fl in zip(
         npz["sigma_comm_u32"], npz["sigma_comm_flag"])]
     pk.ext_selectors = {
-        k: from_limbs16(npz[f"sel_{k}"], params.g1_lagrange.device)
+        k: from_limbs16(npz[f"sel_{k}"], pcs.device(params))
         for k in _SELECTORS}
     return pk

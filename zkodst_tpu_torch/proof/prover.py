@@ -7,12 +7,15 @@ commitments, β and γ, the permutation and lookup grand products Z and
 their commitments, y; the quotient h on the extended coset (the
 constraint system of :mod:`.constraints` over coset-extended columns) and
 its four commitments, x; the evaluations at x·ω^r in ``query_schedule``
-order; the SHPLONK multiopen (W, W′).
+order; the multiopen: SHPLONK's W and W′ (KZG), or W and one log-size
+opening (IPA). Every commitment and the multiopen go through
+:mod:`.pcs`, so ``params`` may be either scheme's.
 
 Blinds come from one ``random.Random(("zkodst-blind", seed))`` drawn in
 the reference's order — advice (one tail per column), lookups (A′ then S′
-per lookup), permutation Z (one per chunk), lookup Z (one per lookup) — so
-the bytes equal the reference proof's. SHPLONK over KZG draws none.
+per lookup), permutation Z (one per chunk), lookup Z (one per lookup),
+then the IPA multiopen's r_h and its l/m pairs — so the bytes equal the
+reference proof's. SHPLONK over KZG draws none.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from ..ops import u64
 from ..ops.field import FR
 from ..ops.ntt import powers_table
 from ..ops.pyfield import FR as PFR
-from . import constraints, pcs, shplonk, srs
+from . import constraints, pcs, shplonk
 from .domain import DELTA, EXT_FACTOR, Domain
 from .keygen import ProvingKey
 from .transcript import Blake2bWrite
@@ -73,28 +76,31 @@ def _prep_advice(adv_u64_stack: torch.Tensor, blinds: torch.Tensor,
     return ev
 
 
-def advice_phase(params: srs.ParamsKZG, circ: CircuitDef,
+def advice_phase(params: pcs.Params, circ: CircuitDef,
                  advice_u64: Dict[str, torch.Tensor], rng: random.Random,
-                 tw: Blake2bWrite, metrics=None) -> torch.Tensor:
+                 tw: Blake2bWrite, metrics=None):
     """Blind and commit every advice column (phase ``prove.advice_commit``);
-    writes one point per column and returns the (A, n, 8) blinded columns.
+    writes one point per column and returns the (A, n, 8) blinded columns
+    and, under IPA, their coefficient forms (None under KZG).
 
-    Advice cells are u64 values, so the body MSM runs only the 64-bit
-    windows and the full-width blinding tail is a separate small MSM."""
-    dev = params.g1_lagrange.device
+    Advice cells are u64 values, so under KZG the body MSM runs only the
+    64-bit windows and the full-width blinding tail is a separate small
+    MSM (the coefficient forms are made after the phase, with the instance
+    columns'); IPA commits the coefficient forms, full-width scalars."""
+    dev = pcs.device(params)
     with _phase(metrics, "prove.advice_commit"):
         blinds = _blinds(rng, len(circ.advice_names), dev)
         evals = _prep_advice(
             torch.stack([advice_u64[name] for name in circ.advice_names]),
             blinds, circ.n)
-        for pt in srs.commit_lagrange_many(params, evals, MSM_C,
-                                           body_bits=64,
-                                           tail_rows=BLINDING_ROWS):
+        coeffs = Domain(circ.k).intt(evals) if pcs.is_ipa(params) else None
+        for pt in pcs.commit_columns(params, evals, coeffs, MSM_C,
+                                     body_bits=64, tail_rows=BLINDING_ROWS):
             tw.write_point(pt)
-    return evals
+    return evals, coeffs
 
 
-def commit_advice(params: srs.ParamsKZG, circ: CircuitDef,
+def commit_advice(params: pcs.Params, circ: CircuitDef,
                   advice_u64: Dict[str, torch.Tensor], seed: int,
                   metrics=None) -> bytes:
     """The advice-commitment bytes alone (one compressed point per column,
@@ -442,7 +448,7 @@ class Prover:
     produces its columns) and the opening claims. The phase methods run in
     order; :func:`create_proof` drives them."""
 
-    def __init__(self, params: srs.ParamsKZG, pk: ProvingKey,
+    def __init__(self, params: pcs.Params, pk: ProvingKey,
                  advice_u64: Dict[str, torch.Tensor],
                  instance_u64: Dict[str, torch.Tensor],
                  seed: Optional[int] = None, metrics=None,
@@ -450,7 +456,7 @@ class Prover:
         self.params, self.pk, self.metrics = params, pk, metrics
         self.circ = pk.vk.circ
         self.dom = Domain(self.circ.k)
-        self.dev = params.g1_lagrange.device
+        self.dev = pcs.device(params)
         self.advice_u64 = advice_u64
         self.rng = random.Random(secrets.token_bytes(32) if seed is None
                                  else ("zkodst-blind", seed).__repr__())
@@ -469,12 +475,22 @@ class Prover:
             self.evals[f"perm.sigma{i}"] = se
 
     def _pre_intt(self, names: List[str]) -> None:
-        """Coefficient forms of final columns, for the quotient: one
-        batched iNTT per phase, as the reference enqueues them."""
+        """Coefficient forms of final columns, for the quotient and the IPA
+        commitments: one batched iNTT per phase, as the reference enqueues
+        them, of the columns whose form is not made yet."""
+        names = [nm for nm in names if nm not in self.coeffs]
         if names:
             coeffs = self.dom.intt(torch.stack([self.evals[nm]
                                                 for nm in names]))
             self.coeffs.update(zip(names, coeffs))
+
+    def _commit(self, names: List[str]) -> List:
+        """The named columns' commitments, from the form the scheme
+        commits."""
+        return pcs.commit_columns(self.params,
+                                  torch.stack([self.evals[nm]
+                                               for nm in names]),
+                                  [self.coeffs[nm] for nm in names], MSM_C)
 
     def _all_coeffs(self) -> Dict[str, torch.Tensor]:
         """The proof's coefficient forms and the key's (fixed and σ)."""
@@ -493,9 +509,11 @@ class Prover:
                 self.advice_u64[lk.input_cols[0]][:, 0],
                 _u64_tensor(circ.fixed[lk.table_cols[0]], self.dev)[:, 0], u)
             for lk in circ.lookups}
-        adv = advice_phase(self.params, circ, self.advice_u64, self.rng,
-                           self.tw, self.metrics)
+        adv, adv_coeffs = advice_phase(self.params, circ, self.advice_u64,
+                                       self.rng, self.tw, self.metrics)
         self.evals.update(zip(circ.advice_names, adv))
+        if adv_coeffs is not None:
+            self.coeffs.update(zip(circ.advice_names, adv_coeffs))
         self._pre_intt(list(circ.advice_names) + list(circ.instance_names))
         self.challenges["theta"] = self.tw.squeeze_challenge()
 
@@ -515,9 +533,7 @@ class Prover:
                     self.evals[f"{lk.name}.s_perm"] = sps[i]
                     names += [f"{lk.name}.a_perm", f"{lk.name}.s_perm"]
                 self._pre_intt(names)
-                for pt in pcs.commit_evals_many(
-                        self.params, torch.stack([self.evals[nm]
-                                                  for nm in names]), MSM_C):
+                for pt in self._commit(names):
                     self.tw.write_point(pt)
         self.challenges["beta"] = self.tw.squeeze_challenge()
         self.challenges["gamma"] = self.tw.squeeze_challenge()
@@ -548,9 +564,7 @@ class Prover:
                 self.evals[f"{lk.name}.z"] = z
                 names.append(f"{lk.name}.z")
             self._pre_intt(names)
-            for pt in pcs.commit_evals_many(
-                    self.params, torch.stack([self.evals[nm]
-                                              for nm in names]), MSM_C):
+            for pt in self._commit(names):
                 self.tw.write_point(pt)
         self.challenges["y"] = self.tw.squeeze_challenge()
 
@@ -627,19 +641,22 @@ class Prover:
                 evals_dev=self.evals[name]))
 
     def multiopen(self) -> None:
-        """SHPLONK's W and W′ (phase ``prove.multiopen``)."""
+        """SHPLONK's W and W′, or IPA's W and opening (phase
+        ``prove.multiopen``)."""
         with _phase(self.metrics, "prove.multiopen"):
-            shplonk.open_claims(self.params, self.dom, self.claims, self.tw)
+            pcs.open_all(self.params, self.dom, self.claims, self.tw,
+                         rng=self.rng)
 
 
-def create_proof(params: srs.ParamsKZG, pk: ProvingKey,
+def create_proof(params: pcs.Params, pk: ProvingKey,
                  advice_u64: Dict[str, torch.Tensor],
                  instance_u64: Dict[str, torch.Tensor],
                  seed: Optional[int] = None, metrics=None,
                  transcript_mode: str = "v1") -> bytes:
     """The proof's bytes: the advice points, the A′/S′ points, the
     permutation then lookup Z points, the four h points, the evaluations
-    and SHPLONK's W and W′.
+    and the multiopen (SHPLONK's W and W′ over KZG params; W, the 2k L/R
+    points and two scalars over IPA params).
 
     advice_u64 / instance_u64: (n, 2) u64 pairs per column (tensors on the
     SRS's device; instance columns may also be numpy). seed: None draws the

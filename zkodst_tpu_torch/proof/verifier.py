@@ -1,12 +1,14 @@
 """verify_proof: transcript replay, the quotient identity at x and the
-SHPLONK pairing check, on the host.
+multiopen check.
 
-Counterpart of ``zkodst_tpu/proof/verifier.py`` (:31-167), KZG only. It
-replays the Blake2b transcript (v1 or halo2ce), evaluates the same
-constraint enumeration as the prover at the challenge x with Python ints
+Counterpart of ``zkodst_tpu/proof/verifier.py`` (:31-167). It replays the
+Blake2b transcript (v1 or halo2ce), evaluates the same constraint
+enumeration as the prover at the challenge x with Python ints
 (:mod:`.constraints`), checks numerator(x) == h(x)·(x^n − 1), and hands
-the batched opening to SHPLONK's pairing check (the native C++ core, or
-Python ints with ``native=False``). The instance columns are not
+the batched opening to the params' scheme (:func:`.pcs.verify_all`):
+SHPLONK's pairing check on the host (the native C++ core, or Python ints
+with ``native=False``), or the IPA opening check, whose one n-point MSM
+⟨s, G⟩ runs on the params' device. The instance columns are not
 committed: the verifier evaluates them at x from the public values (the
 Lagrange closed form over their nonzero rows).
 """
@@ -19,7 +21,7 @@ import numpy as np
 
 from ..ops import u64
 from ..ops.pyfield import FR as PFR
-from . import constraints, shplonk, srs
+from . import constraints, pcs, shplonk
 from .domain import DELTA, EXT_FACTOR, Domain
 from .keygen import VerifyingKey
 from .prover import absorb_instances, query_schedule, rotation_point
@@ -79,7 +81,7 @@ class _PointCtx:
         return a * b % PFR.p
 
 
-def verify_proof(params: srs.ParamsKZG, vk: VerifyingKey,
+def verify_proof(params: pcs.Params, vk: VerifyingKey,
                  instance_u64: Dict[str, object], proof: bytes,
                  transcript_mode: str = "v1", native: bool = True) -> bool:
     """True if `proof` proves `vk`'s circuit on these instance columns
@@ -146,7 +148,7 @@ def verify_proof(params: srs.ParamsKZG, vk: VerifyingKey,
         if numer % PFR.p != h_at_x * dom.vanishing_eval(x) % PFR.p:
             return False
 
-        if not shplonk.verify_claims(params, dom, claims, tr, native):
+        if not pcs.verify_all(params, dom, claims, tr, native):
             return False
         return tr.done()
     except (AssertionError, ValueError, KeyError, IndexError,
