@@ -59,13 +59,25 @@ profiled; the path traced by kernel in a process of its own
 traced launches equal to its calls; one
 opening timed against its MSMs alone, and its U and H terms on the card
 against the host; the toy circuit's IPA proof on the card against the JAX
-package's sha256) and ``pasta`` (commit, open and verify
+package's sha256; the flagship IPA proof against the port's own pin) and
+``pasta`` (commit, open and verify
 of one polynomial on the pallas curve at K = 3, against the JAX
 package's bytes, and at K = 10, each rejected with a byte flipped and
 with a wrong value; every Pasta instantiation of kernels 1–3 and 8 held
 to its twin at each of the phase's shapes). The kernel line lists the
-Pasta instantiations that the phase launched beside the twelve. Any
-failure exits non-zero before the last line. It imports nothing of JAX or
+Pasta instantiations that the phase launched beside the twelve. The
+``mesh`` phase, after ``cli``, runs the multi-GPU prover on the one card
+from the ``cache`` phase's files: the flagship proof sharded over NCCL at
+world size 1 and over gloo at world size 2 (two processes on cuda:0),
+each rank a process of its own (``--mesh-rank BACKEND CACHE_DIR``, under
+the ``torch.distributed`` variables the phase sets): on every rank the
+golden bytes, verified, a second proof equal, its launches counted, its
+peak memory, and each kernel held to its twin at its largest shape that a
+single-device prove does not give it; then ``python -m
+torch.distributed.run --nproc-per-node 2 -m zkodst_tpu_torch prove --mesh
+2`` (gloo, no seed) must print ``"verified": true``. The kernels are built
+once, fresh, by this process; the processes it starts load that build.
+Any failure exits non-zero before the last line. It imports nothing of JAX or
 zkodst_tpu and writes nothing outside the kernel build directories and a
 temporary cache directory that it removes.
 """
@@ -80,6 +92,8 @@ import math
 import os
 import random
 import re
+import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -104,10 +118,19 @@ IPA_SAMPLE_SEED = 17                     # the generators sampled
 TOY_IPA_SHA256 = \
     "488377f10558d62a9833b7178e144e45d9294d18e332a90ffcd0b84225e75321"
 TOY_IPA_BYTES = 1280
+# the port's own pin of the flagship IPA proof (blind seed 2), from its
+# first card runs: the JAX IPA pipeline has no run at k = 17 (its keygen
+# takes hours on a CPU), so this is not the reference's
+FLAGSHIP_IPA_SHA256 = \
+    "b0d0bac1f6122db034e611869baa1dc0281e3fca25537632eb13a9b503ad12bc"
 # the JAX package's pallas opening of tests/test_ipa_pasta.py's inputs
 # (K = 3), as tests/test_torch_ipa_pasta.py pins it
 PASTA_K3_SHA256 = \
     "45ec9cce8eb33a67d7b2aaf18b264418dfae711658e1309df5473a1edc4d9524"
+# the mesh phase's runs on the one card: (backend, ranks); two gloo ranks
+# share cuda:0 (NCCL refuses two ranks on one device)
+MESH_RUNS = (("nccl", 1), ("gloo", 2))
+MESH_TIMEOUT_S = 400                # a run's ranks, or the CLI's, at most
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory (data sheet)
 IMAD_PER_SM_CLOCK = 64              # 32-bit multiply results / SM / clock
 POINT_BYTES = 96                    # a projective point: 24 32-bit words
@@ -751,6 +774,59 @@ def hold_to_twins(rec, wrappers, plains, imad_rate, failures) -> dict:
     return records
 
 
+def kernel_tables():
+    """(sites: wrapper -> the (module, attribute) places the path looks it
+    up, wrappers: name -> wrapper, plains: name -> its plain twin)."""
+    from zkodst_tpu_torch import kernels
+    from zkodst_tpu_torch.kernels import ec as kec
+    from zkodst_tpu_torch.kernels import mulmod as kmul
+    from zkodst_tpu_torch.kernels import ntt as kntt
+    from zkodst_tpu_torch.ops import msm
+    from zkodst_tpu_torch.ops import ntt as ontt
+
+    sites = {
+        "mulmod": [(kmul, "mulmod")],
+        "addmod": [(kmul, "addmod")],
+        "submod": [(kmul, "submod")],
+        "chain_cumprod": [(kmul, "chain_cumprod")],
+        "cumprod_tile": [(kmul, "cumprod_tile")],
+        "ntt_tail": [(ontt, "ntt_tail")],
+        "ntt_head": [(ontt, "ntt_head")],
+        "ec_add": [(kec, "ec_add")],
+        "seg_step": [(msm, "seg_step")],
+        "seg_scan_tiles": [(msm, "seg_scan_tiles")],
+        "chain_scan_local": [(msm, "chain_scan_local")],
+        "scale_reduce": [(msm, "scale_reduce")],
+    }
+    wrappers = {name: fn for name, (fn, _) in kernels.WRAPPERS.items()}
+    plains = {"mulmod": kmul.mulmod_plain, "addmod": kmul.addmod_plain,
+              "submod": kmul.submod_plain,
+              "chain_cumprod": kmul.chain_cumprod_plain,
+              "cumprod_tile": kmul.cumprod_tile_plain,
+              "ntt_tail": kntt.ntt_tail_plain,
+              "ntt_head": kntt.ntt_head_plain,
+              "ec_add": kec.ec_add_plain,
+              "seg_step": kec.seg_step_plain,
+              "seg_scan_tiles": kec.seg_scan_tiles_plain,
+              "chain_scan_local": kec.chain_scan_local_plain,
+              "scale_reduce": kec.scale_reduce_plain}
+    return sites, wrappers, plains
+
+
+def card_imad_rate() -> float:
+    """The card's 32-bit multiply results per second: SMs × 64 a clock ×
+    the maximum SM clock (nvidia-smi)."""
+    import torch
+
+    props = torch.cuda.get_device_properties(0)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]
+    return props.multi_processor_count * IMAD_PER_SM_CLOCK \
+        * float(clock) * 1e6
+
+
 def idle_kernels(launches, names=None) -> list:
     """The kernels of `names` (every kernel when None) that a path did not
     launch."""
@@ -1018,6 +1094,213 @@ def cli_phase(cache_dir):
     return record, faults
 
 
+def mesh_rank() -> int:
+    """``--mesh-rank BACKEND CACHE_DIR``: one rank of the ``mesh`` phase,
+    under the ``torch.distributed`` variables that phase sets, on cuda:0.
+    ``setup_blake2f(k=17, n_inst=37)`` from the cache with a 1-D mesh over
+    the job's ranks; the EIP-152 proof with blind seed 2, sharded, its
+    launches counted and its bytes held to the golden file; a warm prove
+    (the same bytes) and verify; the sharded prove's kernel calls recorded,
+    and (rank 0, after the last collective) each kernel held to its twin
+    at its largest shape that a single-device prove in this process does
+    not give it. Prints one JSON line (``{"mesh_rank": ...}``)."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from zkodst_tpu_torch import api, kernels
+    from zkodst_tpu_torch.kernels import build
+    from zkodst_tpu_torch.parallel.bootstrap import init_distributed, \
+        make_mesh
+
+    backend, cache_dir = sys.argv[2], sys.argv[3]
+    dev = init_distributed(backend=backend, device="cuda:0")
+    mesh = make_mesh((dist.get_world_size(),), ("x",))
+    faults = []
+    rec = {"rank": mesh.rank, "backend": backend,
+           "world": dist.get_world_size(),
+           "transport": "host buffers" if mesh.staged else "device"}
+    built = build.build()
+    rec["build"] = {"compiled": built.compiled, "s": built.seconds}
+    with open(GOLDEN) as fh:
+        golden = json.load(fh)
+    t0 = time.perf_counter()
+    pr = api.setup_blake2f(k=K, n_inst=N_INST, srs_seed=SRS_SEED,
+                           cache_dir=cache_dir, echo=False, device=dev,
+                           mesh=mesh, mesh_axis="x")
+    torch.cuda.synchronize()
+    rec["setup_s"] = time.perf_counter() - t0
+    inputs = api.eip152_inputs(N_INST)
+    kernels.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    proof, inst = pr.prove(*inputs, seed=BLIND_SEED)
+    torch.cuda.synchronize()
+    rec["prove_cold_s"] = time.perf_counter() - t0
+    rec["launches"] = kernels.counts()
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["phases_s"] = {ph.label: ph.seconds for ph in pr.metrics.phases}
+    rec["proof_bytes"] = len(proof)
+    rec["proof_sha256"] = hashlib.sha256(proof).hexdigest()
+    if (proof != bytes.fromhex(golden["proof_hex"])
+            or rec["proof_sha256"] != golden["proof_sha256"]):
+        faults.append(f"rank {mesh.rank}: the sharded proof ({len(proof)} "
+                      f"bytes, sha256 {rec['proof_sha256']}) is not the "
+                      "golden one")
+    # at world size 1 the MSM's partial sums need no addition (kernel 8)
+    idle = idle_kernels(rec["launches"],
+                        [k for k in rec["launches"]
+                         if k != "ec_add" or rec["world"] > 1])
+    if idle:
+        faults.append(f"rank {mesh.rank}: kernels not launched on the "
+                      f"sharded prove: {idle}")
+    t0 = time.perf_counter()
+    again, _ = pr.prove(*inputs, seed=BLIND_SEED)
+    torch.cuda.synchronize()
+    rec["prove_warm_s"] = time.perf_counter() - t0
+    if again != proof:
+        faults.append(f"rank {mesh.rank}: a second sharded proof differs")
+    t0 = time.perf_counter()
+    if not pr.verify(inst, proof):
+        faults.append(f"rank {mesh.rank}: the verifier rejects the sharded "
+                      "proof")
+    rec["verify_s"] = time.perf_counter() - t0
+    sites, wrappers, plains = kernel_tables()
+    with Recorder(sites) as sharded:
+        pr.prove(*inputs, seed=BLIND_SEED)
+        torch.cuda.synchronize()
+    dist.destroy_process_group()          # the last collective is behind
+    log(f"mesh rank {mesh.rank} of {rec['world']} ({backend}): setup "
+        f"{rec['setup_s']:.3f} s, prove {rec['prove_cold_s']:.3f} s cold, "
+        f"{rec['prove_warm_s']:.3f} s warm, verify {rec['verify_s']:.3f} s,"
+        f" peak {rec['peak_bytes'] / 2**30:.2f} GiB; {rec['launches']}")
+    if mesh.rank == 0:
+        single = api.Blake2fProver(built=pr.built, params=pr.params,
+                                   pk=pr.pk, metrics=pr.metrics)
+        with Recorder(sites) as one:
+            single.prove(*inputs, seed=BLIND_SEED)
+            torch.cuda.synchronize()
+        rate = card_imad_rate()
+        held = hold_to_twins(largest_new(sharded, set(one.calls), rate),
+                             wrappers, plains, rate, faults)
+        # a warm prove's calls per kernel, sharded and on one device
+        rec["warm_calls"] = {
+            label: {name: sum(c for (nm, _), c in r.n.items() if nm == name)
+                    for name in wrappers}
+            for label, r in (("sharded", sharded), ("single", one))}
+        rec["twins"] = {name: [e for e, _ in recs]
+                        for name, recs in held.items()}
+        rec["shapes_all_single"] = [n for n in wrappers if n not in held]
+    rec["faults"] = faults
+    print(json.dumps({"mesh_rank": rec}), flush=True)
+    return 0
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_apart(cmds, envs, logdir, label, timeout):
+    """Start each command (one process group each, output to files under
+    `logdir`), wait for all of them up to `timeout` seconds in all, kill
+    every group still running then. Returns [(exit code or None for a
+    killed one, stdout, stderr)]."""
+    procs = []
+    for i, (cmd, env) in enumerate(zip(cmds, envs)):
+        out = open(os.path.join(logdir, f"{label}.{i}.out"), "w+")
+        err = open(os.path.join(logdir, f"{label}.{i}.err"), "w+")
+        procs.append((subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
+                                       stderr=err, start_new_session=True),
+                      out, err))
+    deadline = time.monotonic() + timeout
+    got = []
+    for p, out, err in procs:
+        try:
+            rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            rc = None
+        got.append(rc)
+    for p, _, _ in procs:                 # whatever a rank left running
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        p.wait()
+    res = []
+    for rc, (_, out, err) in zip(got, procs):
+        out.seek(0)
+        err.seek(0)
+        res.append((rc, out.read(), err.read()))
+        out.close()
+        err.close()
+    return res
+
+
+def mesh_phase(cache_dir):
+    """The multi-GPU prover on the one card: the flagship proof sharded
+    (``--mesh-rank``) over NCCL at world size 1 and over gloo at world size
+    2 (two processes on cuda:0), from the cache of the ``cache`` phase,
+    each rank's proof the golden bytes and verified, its launches counted,
+    each kernel held to its twin at its new shapes (rank 0); then the CLI
+    under ``torch.distributed.run --nproc-per-node 2`` with ``--mesh 2``
+    (gloo on cuda:0) and no seed must print ``"verified": true``. Returns
+    (record, faults)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    faults, record = [], {}
+    base = dict(os.environ, PYTHONPATH=ROOT, MASTER_ADDR="localhost")
+    for backend, world in MESH_RUNS:
+        label = f"{backend}x{world}"
+        port = str(free_port())
+        t0 = time.perf_counter()
+        got = run_apart(
+            [[sys.executable, os.path.abspath(__file__), "--mesh-rank",
+              backend, cache_dir]] * world,
+            [dict(base, MASTER_PORT=port, WORLD_SIZE=str(world),
+                  RANK=str(r), LOCAL_RANK=str(r)) for r in range(world)],
+            cache_dir, label, MESH_TIMEOUT_S)
+        run = {"wall_s": time.perf_counter() - t0, "ranks": []}
+        for r, (rc, out, err) in enumerate(got):
+            for line in out.splitlines():
+                if line.startswith("#"):
+                    print(f"# [{label} rank {r}] {line[2:]}", flush=True)
+            rec = next((json.loads(line)["mesh_rank"]
+                        for line in out.splitlines()
+                        if line.startswith('{"mesh_rank"')), None)
+            if rc != 0 or rec is None:
+                faults.append(f"{label} rank {r} exits {rc}: "
+                              f"{err.strip()[-600:]}")
+                continue
+            faults += [f"{label}: {f}" for f in rec["faults"]]
+            run["ranks"].append(rec)
+        record[label] = run
+        log(f"mesh {label}: {run['wall_s']:.1f} s of wall for its ranks")
+    port = str(free_port())
+    t0 = time.perf_counter()
+    (rc, out, err), = run_apart(
+        [[sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+          "2", "--master-addr", "localhost", "--master-port", port, "-m",
+          "zkodst_tpu_torch", "prove", "--k", str(K), "--instances",
+          str(N_INST), "--cache-dir", cache_dir, "--mesh", "2", "--device",
+          "cuda:0", "--backend", "gloo", "--quiet"]],
+        [base], cache_dir, "cli", MESH_TIMEOUT_S)
+    last = next((json.loads(line) for line in reversed(out.splitlines())
+                 if line.startswith('{"proof_bytes"')), None)
+    record["cli"] = {"rc": rc, "wall_s": time.perf_counter() - t0,
+                     "prints": last}
+    if rc != 0 or last != {"proof_bytes": PROOF_BYTES, "verified": True}:
+        faults.append(f"cli --mesh 2 exits {rc}, prints {last}: "
+                      f"{err.strip()[-600:]}")
+    log(f"mesh cli: {record['cli']}")
+    return record, faults
+
+
 def toy_circuit(k: int = 5):
     """The toy circuit of tests/test_torch_keygen.py (q·(a² − b) = 0,
     a ∈ {0..15}, b[2] copied from b[1]) and its witness on the card."""
@@ -1080,8 +1363,9 @@ def ipa_phase(inputs, kzg_proof, kzg_calls, sites, wrappers, plains,
     twin at its largest IPA shape the KZG path did not give it; the warm
     phases profiled; the path traced by kernel (``--ipa-trace``); one
     opening against its MSMs alone and its U and H terms on the card
-    against the host's; the toy circuit's IPA proof against the JAX pin.
-    Returns (record, faults)."""
+    against the host's; the toy circuit's IPA proof against the JAX pin;
+    the flagship IPA proof against the port's pin. Returns (record,
+    faults)."""
     import torch
 
     from zkodst_tpu_torch import api, kernels
@@ -1138,6 +1422,10 @@ def ipa_phase(inputs, kzg_proof, kzg_calls, sites, wrappers, plains,
     record["proof_sha256"] = hashlib.sha256(proof).hexdigest()
     if len(proof) != IPA_PROOF_BYTES:
         faults.append(f"{len(proof)} bytes, not {IPA_PROOF_BYTES}")
+    if record["proof_sha256"] != FLAGSHIP_IPA_SHA256:
+        faults.append(f"the flagship IPA proof's sha256 "
+                      f"{record['proof_sha256']} is not the port's pin "
+                      f"{FLAGSHIP_IPA_SHA256}")
     t1 = time.perf_counter()
     again, _ = pr.prove(*inputs, seed=BLIND_SEED)
     torch.cuda.synchronize()
@@ -1380,7 +1668,7 @@ def main(argv) -> int:
 
     if argv:
         print("usage: chip_smoke.py [--inv-batch | --kzg-trace | "
-              "--ipa-trace]",
+              "--ipa-trace | --mesh-rank BACKEND CACHE_DIR]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1391,11 +1679,8 @@ def main(argv) -> int:
         from zkodst_tpu_torch import api, kernels, native
         from zkodst_tpu_torch.circuit import blake2f as bc
         from zkodst_tpu_torch.circuit import mock
-        from zkodst_tpu_torch.kernels import build, ec as kec
-        from zkodst_tpu_torch.kernels import mulmod as kmul
-        from zkodst_tpu_torch.kernels import ntt as kntt
-        from zkodst_tpu_torch.ops import blake2, curve, msm, pycurve, u64
-        from zkodst_tpu_torch.ops import ntt as ontt
+        from zkodst_tpu_torch.kernels import build
+        from zkodst_tpu_torch.ops import blake2, curve, pycurve, u64
         from zkodst_tpu_torch.ops.pyfield import FR
         from zkodst_tpu_torch.proof import keygen, prover, srs, verifier
     except ImportError as ex:
@@ -1407,18 +1692,14 @@ def main(argv) -> int:
 
     card = card_line()
     log(f"card: {card}")
-    props = torch.cuda.get_device_properties(0)
-    clock = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.split()[0]
-    imad_rate = props.multi_processor_count * IMAD_PER_SM_CLOCK \
-        * float(clock) * 1e6
-    log(f"{props.multi_processor_count} SMs at {clock} MHz: {imad_rate:.4g} "
-        f"32-bit multiply results/s; HBM {HBM_BYTES_PER_S:.3g} B/s")
+    imad_rate = card_imad_rate()
+    log(f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs: "
+        f"{imad_rate:.4g} 32-bit multiply results/s; HBM "
+        f"{HBM_BYTES_PER_S:.3g} B/s")
 
-    # -- build --------------------------------------------------------------
-    built = build.build()
+    # -- build (fresh: the ptxas records come from this build; the processes
+    # started later load its libraries) --------------------------------------
+    built = build.build(fresh=True)
     phases = {"build": built.seconds}
     log(f"phase build: {built.seconds:.3f} s (nvcc, {len(built.ptxas)} "
         "sources in parallel)")
@@ -1546,20 +1827,7 @@ def main(argv) -> int:
     del staged
 
     # -- every kernel against its plain version, at the main path's shapes ----
-    sites = {
-        "mulmod": [(kmul, "mulmod")],
-        "addmod": [(kmul, "addmod")],
-        "submod": [(kmul, "submod")],
-        "chain_cumprod": [(kmul, "chain_cumprod")],
-        "cumprod_tile": [(kmul, "cumprod_tile")],
-        "ntt_tail": [(ontt, "ntt_tail")],
-        "ntt_head": [(ontt, "ntt_head")],
-        "ec_add": [(kec, "ec_add")],
-        "seg_step": [(msm, "seg_step")],
-        "seg_scan_tiles": [(msm, "seg_scan_tiles")],
-        "chain_scan_local": [(msm, "chain_scan_local")],
-        "scale_reduce": [(msm, "scale_reduce")],
-    }
+    sites, wrappers, plains = kernel_tables()
     # the recorded run: SRS, keygen and prove once more, each kernel's
     # calls and shapes recorded here; each kernel's device time on the path
     # from a trace of the same run in a process of its own (one profiler
@@ -1579,18 +1847,6 @@ def main(argv) -> int:
         "kzg", trace, {name: sum(c for (nm, _), c in rec.n.items()
                                  if nm == name) for name in sites})
     traced = trace["traced"] if trace else {}
-    wrappers = {name: fn for name, (fn, _) in kernels.WRAPPERS.items()}
-    plains = {"mulmod": kmul.mulmod_plain, "addmod": kmul.addmod_plain,
-              "submod": kmul.submod_plain,
-              "chain_cumprod": kmul.chain_cumprod_plain,
-              "cumprod_tile": kmul.cumprod_tile_plain,
-              "ntt_tail": kntt.ntt_tail_plain,
-              "ntt_head": kntt.ntt_head_plain,
-              "ec_add": kec.ec_add_plain,
-              "seg_step": kec.seg_step_plain,
-              "seg_scan_tiles": kec.seg_scan_tiles_plain,
-              "chain_scan_local": kec.chain_scan_local_plain,
-              "scale_reduce": kec.scale_reduce_plain}
     t_check = time.perf_counter()
     records = hold_to_twins(rec, wrappers, plains, imad_rate, failures)
     phases["kernel checks"] = time.perf_counter() - t_check
@@ -1643,6 +1899,16 @@ def main(argv) -> int:
         phase_line("cache", *cache_phase(inputs, golden, cache_dir),
                    failures)
         phase_line("cli", *cli_phase(cache_dir), failures)
+        # -- the multi-GPU prover, its ranks on this one card -------------
+        mesh, mesh_faults = mesh_phase(cache_dir)
+        phase_line("mesh", mesh, mesh_faults, failures)
+    for entry in line:              # each kernel on the sharded proves
+        entry["mesh_path"] = {
+            label: {"launches": run["ranks"][0]["launches"][entry["name"]],
+                    "new_shape": run["ranks"][0].get("twins", {}).get(
+                        entry["name"], [None])[0]}
+            for label, run in mesh.items()
+            if label != "cli" and run["ranks"]}
     # -- the IPA backend: the flagship over BN254, then Pasta's PCS ---------
     phase_line("ipa", *ipa_phase(inputs, want_bytes, set(rec.calls), sites,
                                  wrappers, plains, imad_rate), failures)
@@ -1679,4 +1945,6 @@ if __name__ == "__main__":
         sys.exit(inv_batch_only())
     if sys.argv[1:] in (["--kzg-trace"], ["--ipa-trace"]):
         sys.exit(path_trace_only(sys.argv[1][2:5]))
+    if sys.argv[1:2] == ["--mesh-rank"] and len(sys.argv) == 4:
+        sys.exit(mesh_rank())
     sys.exit(main(sys.argv[1:]))

@@ -1,8 +1,9 @@
 """The port's command line, run configuration and metrics against the
 JAX package's (following ``tests/test_cli.py``): ``vectors`` prints what
 the reference prints, ``RunConfig`` reads ``DEGREE`` and rejects what the
-reference rejects (a mesh, which waits for the multi-GPU prover, too),
-the entry points default to the card, and ``Metrics`` and
+reference rejects (IPA with a mesh), ``prove --mesh`` outside
+``torch.distributed.run`` names the launch, the entry points default to
+the card, and ``Metrics`` and
 ``profiler_trace`` behave as the reference's."""
 
 import json
@@ -38,7 +39,7 @@ def test_runconfig_defaults_as_jax(monkeypatch):
     cfg, ref = RunConfig(), jconfig.RunConfig()
     assert (cfg.k, cfg.n_inst) == (ref.k, ref.n_inst) == (12, 5)
     for name in ("rounds", "commitment", "curve", "cache_dir", "seed",
-                 "mesh_shape", "echo"):
+                 "mesh_shape", "mesh_axes", "echo"):
         assert getattr(cfg, name) == getattr(ref, name), name
     assert cfg.device == "cuda"
     monkeypatch.delenv("DEGREE")
@@ -52,9 +53,10 @@ def test_runconfig_errors():
         RunConfig(commitment="fri")
     with pytest.raises(NotImplementedError, match="BN254|bn254|Pasta"):
         RunConfig(curve="pasta")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        RunConfig(mesh_shape=(8,))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="IPA"):
+        RunConfig(commitment="ipa", mesh_shape=(2,))
+    with pytest.raises(RuntimeError, match="torch.distributed.run "
+                       "--nproc-per-node 8 .* --mesh 2x4"):
         tmain.main(["prove", "--mesh", "2x4", "--device", "cpu"])
 
 

@@ -3,7 +3,10 @@
 
   prove    setup → prove → verify of the EIP-152 vector at the configured
            degree and instance count; prints the metrics JSON, then
-           ``{"proof_bytes": ..., "verified": ...}``
+           ``{"proof_bytes": ..., "verified": ...}``. With ``--mesh N`` (or
+           ``HxC``) the proof is sharded over N ranks, one process each:
+           ``python -m torch.distributed.run --nproc-per-node N -m
+           zkodst_tpu_torch prove --mesh N``; rank 0 alone prints.
   mock     the witness and the constraint check without cryptography
   vectors  the EIP-152 appendix vectors through the batched ``blake2f``
 
@@ -15,6 +18,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
 
 
@@ -28,8 +32,12 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--seed", type=int, default=None,
                    help="deterministic blinding seed (default: OS entropy)")
     p.add_argument("--mesh", default=None,
-                   help="mesh shape, e.g. '8' or '2x4' (multi-GPU prover; "
-                        "not ported yet)")
+                   help="mesh shape, e.g. '8' or '2x4' (multi-GPU prover, "
+                        "under torch.distributed.run)")
+    p.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                   help="process-group backend of a mesh (default: nccl on "
+                        "CUDA, gloo on the CPU; gloo for ranks that share "
+                        "one card)")
     p.add_argument("--commitment", default="kzg", choices=("kzg", "ipa"),
                    help="polynomial commitment scheme: kzg (BN254 + "
                         "SHPLONK) or ipa (transparent, BN254)")
@@ -52,25 +60,55 @@ def _config(args):
         kw["n_inst"] = args.instances
     if args.mesh:
         kw["mesh_shape"] = tuple(int(x) for x in args.mesh.split("x"))
+        kw["mesh_axes"] = ("host", "chip")[-len(kw["mesh_shape"]):]
     return RunConfig(rounds=args.rounds, cache_dir=args.cache_dir,
                      seed=args.seed, echo=not args.quiet,
                      commitment=args.commitment, device=args.device, **kw)
 
 
+def _join(cfg, args):
+    """This rank's device in the job's process group, for a mesh run;
+    raises outside ``torch.distributed.run``."""
+    from .parallel.bootstrap import init_distributed
+
+    dev = init_distributed(backend=args.backend,
+                           device=None if cfg.device == "cuda"
+                           else cfg.device)
+    if dev is None:
+        ranks = math.prod(cfg.mesh_shape)
+        raise RuntimeError(
+            f"--mesh {args.mesh} runs one process per rank: launch it as "
+            f"python -m torch.distributed.run --nproc-per-node {ranks} -m "
+            f"zkodst_tpu_torch prove --mesh {args.mesh}")
+    return dev
+
+
 def cmd_prove(args) -> int:
+    import torch.distributed as dist
+
     from . import api
 
     cfg = _config(args)
-    pipe = api.setup_blake2f(k=cfg.k, n_inst=cfg.n_inst, rounds=cfg.rounds,
-                             cache_dir=cfg.cache_dir, echo=cfg.echo,
-                             scheme=cfg.commitment, device=cfg.device)
-    h, m, t, f = api.eip152_inputs(pipe.n_inst)
-    mode = args.transcript_mode
-    proof, inst = pipe.prove(h, m, t, f, seed=cfg.seed,
-                             transcript_mode=mode)
-    ok = pipe.verify(inst, proof, transcript_mode=mode)
-    print(pipe.metrics.to_json())
-    print(json.dumps({"proof_bytes": len(proof), "verified": bool(ok)}))
+    dev = cfg.device if cfg.mesh_shape is None else _join(cfg, args)
+    try:
+        mesh, axis = cfg.make_mesh()
+        lead = mesh is None or mesh.rank == 0
+        pipe = api.setup_blake2f(k=cfg.k, n_inst=cfg.n_inst,
+                                 rounds=cfg.rounds, cache_dir=cfg.cache_dir,
+                                 echo=cfg.echo and lead,
+                                 scheme=cfg.commitment, device=dev,
+                                 mesh=mesh, mesh_axis=axis or "x")
+        h, m, t, f = api.eip152_inputs(pipe.n_inst)
+        mode = args.transcript_mode
+        proof, inst = pipe.prove(h, m, t, f, seed=cfg.seed,
+                                 transcript_mode=mode)
+        ok = pipe.verify(inst, proof, transcript_mode=mode)
+    finally:
+        if cfg.mesh_shape is not None:
+            dist.destroy_process_group()
+    if lead:
+        print(pipe.metrics.to_json())
+        print(json.dumps({"proof_bytes": len(proof), "verified": bool(ok)}))
     return 0 if ok else 1
 
 

@@ -2,9 +2,11 @@
 for the EIP-152 BLAKE2f circuit, with phase timing, the mock check and
 SRS and key caching.
 
-Counterpart of ``zkodst_tpu/api.py`` on one device, with either
-commitment scheme: KZG (BN254 + SHPLONK) or the transparent IPA over
-BN254 (``scheme="ipa"``). The phases are
+Counterpart of ``zkodst_tpu/api.py``, with either commitment scheme: KZG
+(BN254 + SHPLONK) or the transparent IPA over BN254 (``scheme="ipa"``),
+on one device or, for KZG, sharded over a mesh of ranks
+(``mesh=parallel.bootstrap.make_mesh(...)``: every rank runs the same
+calls). The phases are
 labelled ``setup``, ``setup.keygen``, ``prove``, ``prove.witness``,
 ``prove.advice_commit``, ``prove.lookup_permute``,
 ``prove.grand_products_commit``, ``prove.quotient``,
@@ -28,12 +30,15 @@ from .utils.timing import PROVE, SETUP, VERIFY, Metrics
 
 @dataclass
 class Blake2fProver:
-    """A BLAKE2f pipeline at fixed (k, instances, rounds) on one device."""
+    """A BLAKE2f pipeline at fixed (k, instances, rounds) on one device,
+    or with its proofs sharded over `mesh` (each rank holds its own)."""
 
     built: blake2f_circuit.Blake2fCircuit
     params: pcs.Params
     pk: keygen.ProvingKey
     metrics: Metrics
+    mesh: object = None              # parallel.bootstrap.Mesh
+    mesh_axis: object = "x"
 
     @property
     def n_inst(self) -> int:
@@ -59,7 +64,9 @@ class Blake2fProver:
             adv, inst = self.witness(h, m, t, f)
             proof = prover.create_proof(self.params, self.pk, adv, inst,
                                         seed=seed, metrics=self.metrics,
-                                        transcript_mode=transcript_mode)
+                                        transcript_mode=transcript_mode,
+                                        mesh=self.mesh,
+                                        mesh_axis=self.mesh_axis)
         return proof, inst
 
     def verify(self, instance: dict, proof: bytes,
@@ -82,7 +89,7 @@ class Blake2fProver:
 def setup_blake2f(k: int = 17, n_inst: int = 1, rounds: int = 12,
                   srs_seed: int = 0, cache_dir: Optional[str] = None,
                   echo: bool = True, scheme: str = "kzg",
-                  device=None) -> Blake2fProver:
+                  device=None, mesh=None, mesh_axis="x") -> Blake2fProver:
     """Build the circuit, make the commitment params (the KZG SRS or the
     IPA generators) and the proving key on `device` (CUDA by default;
     raises without CUDA unless device="cpu").
@@ -91,11 +98,23 @@ def setup_blake2f(k: int = 17, n_inst: int = 1, rounds: int = 12,
     write them there (``srs.get_or_create``, ``ipa.setup(cache_dir=...)``,
     ``keygen(cache_dir=...)``; the reference's file names and formats).
     echo: print each phase's Start:/End: lines. scheme: "kzg" (BN254 +
-    SHPLONK) or "ipa" (transparent, BN254; srs_seed is not used)."""
+    SHPLONK) or "ipa" (transparent, BN254; srs_seed is not used).
+
+    mesh: a :class:`.parallel.bootstrap.Mesh` (KZG only): the proofs run
+    sharded over `mesh_axis`; every rank calls this with the same
+    arguments and `device` is its own card. With `cache_dir`, rank 0
+    alone makes and writes a missing SRS or key while the others wait,
+    then they read it: no two ranks write one file."""
     if scheme not in ("kzg", "ipa"):
         raise ValueError(f"unknown commitment scheme {scheme!r}")
+    if scheme == "ipa" and mesh is not None:
+        raise NotImplementedError(
+            "the IPA backend is single-device: use KZG for a mesh")
     dev = resolve(device)
     metrics = Metrics(echo=echo)
+    shared = mesh is not None and cache_dir is not None
+    if shared and mesh.rank:
+        mesh.barrier()                  # rank 0 has the cache's files
     with metrics.phase(SETUP):
         built = blake2f_circuit.Blake2fCircuit(k=k, n_inst=n_inst,
                                                rounds=rounds, device=dev)
@@ -108,7 +127,10 @@ def setup_blake2f(k: int = 17, n_inst: int = 1, rounds: int = 12,
             params = srs.setup(k, seed=srs_seed, device=dev)
         with metrics.phase("setup.keygen"):
             pk = keygen.keygen(params, built.circ, cache_dir=cache_dir)
-    return Blake2fProver(built=built, params=params, pk=pk, metrics=metrics)
+    if shared and not mesh.rank:
+        mesh.barrier()
+    return Blake2fProver(built=built, params=params, pk=pk, metrics=metrics,
+                         mesh=mesh, mesh_axis=mesh_axis)
 
 
 def eip152_inputs(n_inst: int = 1):

@@ -4,8 +4,9 @@
 The circuit degree defaults to the ``DEGREE`` environment variable (else
 17) and the instance count to ``ZKODST_BENCH_INSTANCES`` (else 37);
 ``commitment`` is "kzg" or "ipa" (both over BN254: the whole pipeline on
-Pasta is not the reference's either). The multi-GPU prover is not ported
-yet (ROADMAP §1 item 9), so a mesh shape raises.
+Pasta is not the reference's either). ``mesh_shape`` runs the multi-GPU
+prover over the job's ranks (:meth:`RunConfig.make_mesh`; KZG only, as
+the reference's).
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ class RunConfig:
     curve: str = "bn254"
     cache_dir: Optional[str] = ".zkodst_cache"
     seed: Optional[int] = None       # None: blinds from OS entropy
-    mesh_shape: Optional[Tuple[int, ...]] = None
+    mesh_shape: Optional[Tuple[int, ...]] = None   # e.g. (8,) or (2, 4)
+    mesh_axes: Tuple[str, ...] = ("chip",)
     echo: bool = True                # phase-timer prints
     device: str = "cuda"
 
@@ -46,7 +48,23 @@ class RunConfig:
             raise NotImplementedError(
                 "the pipeline runs on BN254 (Pasta runs at the commitment "
                 "level: proof/ipa.py with curve_name='pasta')")
-        if self.mesh_shape is not None:
+        if self.commitment == "ipa" and self.mesh_shape is not None:
             raise NotImplementedError(
-                "the multi-GPU prover is not ported yet (ROADMAP §1 item "
-                "9): run without a mesh shape")
+                "the IPA backend is single-device: use KZG for mesh runs")
+        if self.mesh_shape is not None and len(self.mesh_shape) != len(
+                self.mesh_axes):
+            self.mesh_axes = tuple(
+                f"ax{i}" for i in range(len(self.mesh_shape)))
+
+    def make_mesh(self):
+        """(the :class:`.parallel.bootstrap.Mesh` over the job's ranks, its
+        axis), or (None, None) without a mesh shape. The process group
+        must be up (``parallel.bootstrap.init_distributed``)."""
+        if self.mesh_shape is None:
+            return None, None
+        from .parallel.bootstrap import make_mesh
+
+        mesh = make_mesh(tuple(self.mesh_shape), tuple(self.mesh_axes))
+        axis = (self.mesh_axes[0] if len(self.mesh_axes) == 1
+                else tuple(self.mesh_axes))
+        return mesh, axis

@@ -1,15 +1,20 @@
 """Build the CUDA sources with nvcc and bind them with ctypes.
 
-Each ``cuda/csrc/<name>.cu`` becomes ``cuda/build/lib<name>.so`` (a plain C
-interface; no PyTorch headers, so a build takes seconds). All sources are
-compiled in parallel, once per process, at the first launch; the build
-directory is ignored by git. ``ptxas -v`` output is kept per source so a
-caller can report registers and spills.
+Each ``cuda/csrc/<name>.cu`` becomes ``cuda/build/lib<name>.<key>.so`` (a
+plain C interface; no PyTorch headers, so a build takes seconds), where
+the key hashes every file of ``cuda/csrc``, the compiler's path and the
+flags. All sources are compiled in parallel, once per process, at the
+first launch, unless libraries of the same key are there already: then
+they are loaded (a process started after a build, such as a rank of a
+sharded prover, skips nvcc). The build directory is ignored by git.
+``ptxas -v`` output is kept per source, beside its library, so a caller
+can report registers and spills.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -55,6 +60,7 @@ class Built:
     libs: Dict[str, ctypes.CDLL]
     ptxas: Dict[str, str]        # source name -> ptxas -v report
     seconds: float               # wall time of the parallel nvcc build
+    compiled: bool               # False: loaded from an earlier build
 
 
 _BUILT: Built | None = None
@@ -77,42 +83,71 @@ def nvcc() -> str:
     return found
 
 
-def build() -> Built:
-    """Compile every source (in parallel) and load the libraries; cached
-    for the life of the process. Raises on any compiler error."""
+def _flags(compiler: str, name: str, out: Path) -> list:
+    return [compiler, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
+            "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
+def _key(compiler: str) -> str:
+    """A hash of every file of ``cuda/csrc``, the compiler's path and the
+    flags: the name of a build of these sources."""
+    h = hashlib.sha256()
+    for path in sorted(CSRC.iterdir()):
+        if path.is_file():
+            h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(_flags(compiler, "", Path())).encode())
+    return h.hexdigest()[:16]
+
+
+def build(fresh: bool = False) -> Built:
+    """Load the libraries, compiling every source (in parallel) unless a
+    build of the same key is there and `fresh` is False; cached for the
+    life of the process. Raises on any compiler error."""
     global _BUILT
     if _BUILT is not None:
         return _BUILT
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     compiler = nvcc()
+    key = _key(compiler)
+    final = {name: BUILD_DIR / f"lib{name}.{key}.so" for name in SOURCES}
+    report = {name: BUILD_DIR / f"lib{name}.{key}.ptxas.txt"
+              for name in SOURCES}
     t0 = time.perf_counter()
-    procs = {}
-    for name in SOURCES:
-        out = BUILD_DIR / f"lib{name}.{os.getpid()}.so"
-        cmd = [compiler, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
-               "-o", str(out), str(CSRC / f"{name}.cu")]
-        procs[name] = (out, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    reports, failed = {}, []
-    for name, (out, proc) in procs.items():
-        stdout, stderr = proc.communicate()
-        reports[name] = stdout + stderr
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu:\n{stdout}{stderr}")
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    compiled = fresh or not all(final[n].exists() and report[n].exists()
+                                for n in SOURCES)
+    if compiled:
+        procs = {}
+        for name in SOURCES:
+            out = BUILD_DIR / f"lib{name}.{os.getpid()}.so"
+            procs[name] = (out, subprocess.Popen(
+                _flags(compiler, name, out), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        reports, failed = {}, []
+        for name, (out, proc) in procs.items():
+            stdout, stderr = proc.communicate()
+            reports[name] = stdout + stderr
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu:\n{stdout}{stderr}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        for name, (out, _) in procs.items():
+            tmp = report[name].with_suffix(f".{os.getpid()}.tmp")
+            tmp.write_text(reports[name])
+            os.replace(tmp, report[name])
+            os.replace(out, final[name])
+    else:
+        reports = {name: report[name].read_text() for name in SOURCES}
     seconds = time.perf_counter() - t0
     libs = {}
-    for name, (out, _) in procs.items():
-        final = BUILD_DIR / f"lib{name}.so"
-        os.replace(out, final)
-        lib = ctypes.CDLL(str(final))
+    for name in SOURCES:
+        lib = ctypes.CDLL(str(final[name]))
         for fn, argtypes in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
-    _BUILT = Built(libs=libs, ptxas=reports, seconds=seconds)
+    _BUILT = Built(libs=libs, ptxas=reports, seconds=seconds,
+                   compiled=compiled)
     return _BUILT
 
 

@@ -5,7 +5,8 @@ the Lagrange selector tables on it.
 Counterpart of ``zkodst_tpu/proof/domain.py``: the multiplicative
 generator, the permutation coset generator δ, ``ntt``/``intt`` of
 ``(..., n, 8)`` Fr columns (:32-116), the extended coset ζ·H′ of 4n points
-(``coeff_to_extended``, ``extended_to_coeff``, :40-80, :118-143), the
+(``coeff_to_extended``, ``extended_to_coeff``, :40-80, :118-143), each
+transform on one device or sharded over a mesh (:81-141), the
 host-side evaluations of Z_H and the Lagrange basis at a point (:145-163)
 and ``selectors_extended`` (:181-226), which the port computes on the
 device.
@@ -22,6 +23,7 @@ from ..circuit.ir import BLINDING_ROWS
 from ..ops import ntt as nttmod
 from ..ops.field import FR
 from ..ops.pyfield import FR as PFR
+from ..parallel.ntt_sharded import intt_sharded_nat, ntt_sharded_nat
 from ..utils.device import resolve
 
 # a generator of Fr^* (halo2curves Fr::MULTIPLICATIVE_GENERATOR = 7)
@@ -69,25 +71,40 @@ class Domain:
         return GEN
 
     # -- device transforms (columns are (..., n, 8) Montgomery limbs) -----------
-    def ntt(self, coeffs):
+    # `mesh`: every rank holds the columns whole and the transform runs as
+    # the 4-step NTT with one all-to-all over `mesh_axis`
+    # (parallel/ntt_sharded.py), its result replicated, as the
+    # reference's mesh path (:98-141).
+    def ntt(self, coeffs, mesh=None, mesh_axis="x"):
         """(..., n, 8) coefficients -> evaluations on H (kernels 6–7)."""
+        if mesh is not None:
+            return ntt_sharded_nat(FR, coeffs, self.omega, mesh, mesh_axis)
         return nttmod.ntt(FR, coeffs, self.omega)
 
-    def intt(self, evals):
+    def intt(self, evals, mesh=None, mesh_axis="x"):
         """(..., n, 8) evaluations on H -> coefficients."""
+        if mesh is not None:
+            return intt_sharded_nat(FR, evals, self.omega, mesh, mesh_axis)
         return nttmod.intt(FR, evals, self.omega)
 
-    def coeff_to_extended(self, coeffs):
+    def coeff_to_extended(self, coeffs, mesh=None, mesh_axis="x"):
         """(..., n, 8) coefficients -> evaluations on ζ·H′ (..., 4n, 8):
         zero-padded to 4n, scaled by ζ^i, one NTT of 4n points."""
         pad = torch.zeros(coeffs.shape[:-2] + (self.ext_n - coeffs.shape[-2],
                                                8),
                           dtype=torch.int32, device=coeffs.device)
         wide = torch.cat([coeffs, pad], dim=-2)
+        if mesh is not None:
+            return ntt_sharded_nat(FR, nttmod.coset_scale(FR, wide, self.zeta),
+                                   self.ext_omega, mesh, mesh_axis)
         return nttmod.coset_ntt(FR, wide, self.ext_omega, self.zeta)
 
-    def extended_to_coeff(self, evals):
+    def extended_to_coeff(self, evals, mesh=None, mesh_axis="x"):
         """Evaluations on ζ·H′ -> coefficient form (length 4n)."""
+        if mesh is not None:
+            return nttmod.coset_scale(
+                FR, intt_sharded_nat(FR, evals, self.ext_omega, mesh,
+                                     mesh_axis), self.zeta, inverse=True)
         return nttmod.coset_intt(FR, evals, self.ext_omega, self.zeta)
 
     # -- host-side scalar helpers ------------------------------------------------

@@ -16,6 +16,16 @@ the reference's order — advice (one tail per column), lookups (A′ then S′
 per lookup), permutation Z (one per chunk), lookup Z (one per lookup),
 then the IPA multiopen's r_h and its l/m pairs — so the bytes equal the
 reference proof's. SHPLONK over KZG draws none.
+
+With a ``mesh`` (``parallel/bootstrap.py``), every rank runs this same
+proof on replicated columns (SPMD, where the reference drives its devices
+from one process): every commitment shards its points over ``mesh_axis``,
+every domain transform runs as the 4-step NTT, and the grand products scan
+each rank's rows with a carry across ranks (``prover.py:276-339``); each
+such step returns its result replicated, so the proof's bytes are the
+single-device ones. The lookup permutations, the constraint evaluation
+and the multiopen stay replicated, as in the reference. Without a seed,
+rank 0 draws the blind stream's entropy and broadcasts it.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from ..ops import u64
 from ..ops.field import FR
 from ..ops.ntt import powers_table
 from ..ops.pyfield import FR as PFR
+from ..parallel.scan_sharded import carry_fold
 from . import constraints, pcs, shplonk
 from .domain import DELTA, EXT_FACTOR, Domain
 from .keygen import ProvingKey
@@ -78,7 +89,7 @@ def _prep_advice(adv_u64_stack: torch.Tensor, blinds: torch.Tensor,
 
 def advice_phase(params: pcs.Params, circ: CircuitDef,
                  advice_u64: Dict[str, torch.Tensor], rng: random.Random,
-                 tw: Blake2bWrite, metrics=None):
+                 tw: Blake2bWrite, metrics=None, mesh=None, mesh_axis="x"):
     """Blind and commit every advice column (phase ``prove.advice_commit``);
     writes one point per column and returns the (A, n, 8) blinded columns
     and, under IPA, their coefficient forms (None under KZG).
@@ -86,7 +97,8 @@ def advice_phase(params: pcs.Params, circ: CircuitDef,
     Advice cells are u64 values, so under KZG the body MSM runs only the
     64-bit windows and the full-width blinding tail is a separate small
     MSM (the coefficient forms are made after the phase, with the instance
-    columns'); IPA commits the coefficient forms, full-width scalars."""
+    columns'); under a mesh the sharded MSM runs full width, as the
+    reference's; IPA commits the coefficient forms, full-width scalars."""
     dev = pcs.device(params)
     with _phase(metrics, "prove.advice_commit"):
         blinds = _blinds(rng, len(circ.advice_names), dev)
@@ -95,7 +107,8 @@ def advice_phase(params: pcs.Params, circ: CircuitDef,
             blinds, circ.n)
         coeffs = Domain(circ.k).intt(evals) if pcs.is_ipa(params) else None
         for pt in pcs.commit_columns(params, evals, coeffs, MSM_C,
-                                     body_bits=64, tail_rows=BLINDING_ROWS):
+                                     body_bits=64, tail_rows=BLINDING_ROWS,
+                                     mesh=mesh, mesh_axis=mesh_axis):
             tw.write_point(pt)
     return evals, coeffs
 
@@ -199,14 +212,23 @@ def _one(device) -> torch.Tensor:
     return FR.const(FR.ONE, device)
 
 
-def _grand_product(ratio: torch.Tensor, carry: torch.Tensor):
+def _grand_product(ratio: torch.Tensor, carry: torch.Tensor, mesh=None,
+                   mesh_axis="x"):
     """Z with Z[0] = carry, Z[i] = carry·∏_{j<i} ratio[j], and the carry
-    out carry·∏ ratio. ratio (n, 8); carry (8,) Montgomery."""
+    out carry·∏ ratio. ratio (n, 8); carry (8,) Montgomery. With `mesh`,
+    ratio is this rank's block of rows: its scan takes the carry of the
+    blocks before it (``prover.py:293-305``) and Z is gathered whole."""
     incl = FR.cumprod_incl(ratio)
+    if mesh is None:
+        out = FR.mul(incl[-1], carry)
+    else:
+        carry, out = carry_fold(FR, incl[-1], carry, mesh, mesh_axis)
     z = torch.empty_like(ratio)
     z[0] = carry
     z[1:] = FR.mul(incl[:-1], carry)
-    return z, FR.mul(incl[-1], carry)
+    if mesh is not None:
+        z = mesh.all_gather(z, mesh_axis).reshape(-1, 8)
+    return z, out
 
 
 def _ratio(num: torch.Tensor, den: torch.Tensor, u: int) -> torch.Tensor:
@@ -216,26 +238,47 @@ def _ratio(num: torch.Tensor, den: torch.Tensor, u: int) -> torch.Tensor:
     return ratio
 
 
-def perm_z_pass(cols, sigmas, idents, bk, gk, carry, u: int):
+def _rows(u: int, cols, mesh, mesh_axis):
+    """(u, the (…, n, 8) columns) as one grand product reads them: whole,
+    or under a mesh this rank's block of rows, with u counted from the
+    block's first row."""
+    if mesh is None:
+        return u, cols
+    n = cols[0].shape[-2]
+    lo = mesh.index(mesh_axis) * (n // mesh.size(mesh_axis))
+    return max(u - lo, 0), [mesh.shard(c, mesh_axis, dim=c.dim() - 2)
+                            for c in cols]
+
+
+def perm_z_pass(cols, sigmas, idents, bk, gk, carry, u: int, mesh=None,
+                mesh_axis="x"):
     """One permutation chunk's grand product (``prover.py:201-218``):
     ∏_i (c_i + β·id_i + γ) / (c_i + β·σ_i + γ) over the chunk's columns.
 
     cols/sigmas/idents: (m, n, 8); bk, gk, carry: (8,). Returns (Z, the
-    carry into the next chunk)."""
+    carry into the next chunk). With `mesh`, the ratios of each rank's
+    rows and their scan (``_z_passes_sharded``, :276-339)."""
+    u, (cols, sigmas, idents) = _rows(u, (cols, sigmas, idents), mesh,
+                                      mesh_axis)
     num_f = FR.add(cols, FR.add(FR.mul(idents, bk), gk))
     den_f = FR.add(cols, FR.add(FR.mul(sigmas, bk), gk))
     num, den = num_f[0], den_f[0]
     for i in range(1, cols.shape[0]):
         num, den = FR.mul(num, num_f[i]), FR.mul(den, den_f[i])
-    return _grand_product(_ratio(num, den, u), carry)
+    return _grand_product(_ratio(num, den, u), carry, mesh, mesh_axis)
 
 
-def lookup_z_pass(a_cmp, s_cmp, ap, sp, bk, gk, u: int):
+def lookup_z_pass(a_cmp, s_cmp, ap, sp, bk, gk, u: int, mesh=None,
+                  mesh_axis="x"):
     """One lookup's grand product (``prover.py:221-232``):
-    (a + β)(s + γ) / (a′ + β)(s′ + γ), starting at 1."""
+    (a + β)(s + γ) / (a′ + β)(s′ + γ), starting at 1 (each rank's rows
+    with `mesh`)."""
+    u, (a_cmp, s_cmp, ap, sp) = _rows(u, (a_cmp, s_cmp, ap, sp), mesh,
+                                      mesh_axis)
     num = FR.mul(FR.add(a_cmp, bk), FR.add(s_cmp, gk))
     den = FR.mul(FR.add(ap, bk), FR.add(sp, gk))
-    return _grand_product(_ratio(num, den, u), _one(a_cmp.device))[0]
+    return _grand_product(_ratio(num, den, u), _one(a_cmp.device), mesh,
+                          mesh_axis)[0]
 
 
 def chunk_tables(pk: ProvingKey):
@@ -441,24 +484,38 @@ def quotient_eval(vk, exts, sels, chal, xext) -> torch.Tensor:
 # create_proof
 # ---------------------------------------------------------------------------
 
+def _entropy(mesh, device) -> bytes:
+    """32 bytes of OS entropy for the blind stream; under a mesh rank 0's,
+    broadcast, so that every rank writes the same transcript."""
+    ent = secrets.token_bytes(32)
+    if mesh is None:
+        return ent
+    got = mesh.broadcast(torch.tensor(list(ent), dtype=torch.uint8,
+                                      device=device))
+    return bytes(got.cpu().tolist())
+
+
 class Prover:
     """One proof in progress: the transcript, the blind stream, every
     committed column in evaluation form (``evals``), the coefficient form
     of each column the proof makes (``coeffs``, computed as each phase
     produces its columns) and the opening claims. The phase methods run in
-    order; :func:`create_proof` drives them."""
+    order; :func:`create_proof` drives them. With a `mesh`, every rank
+    makes the same Prover and calls the same phases in the same order."""
 
     def __init__(self, params: pcs.Params, pk: ProvingKey,
                  advice_u64: Dict[str, torch.Tensor],
                  instance_u64: Dict[str, torch.Tensor],
                  seed: Optional[int] = None, metrics=None,
-                 transcript_mode: str = "v1"):
+                 transcript_mode: str = "v1", mesh=None, mesh_axis="x"):
+        pcs.single_device(params, mesh)
         self.params, self.pk, self.metrics = params, pk, metrics
+        self.mesh, self.mesh_axis = mesh, mesh_axis
         self.circ = pk.vk.circ
         self.dom = Domain(self.circ.k)
         self.dev = pcs.device(params)
         self.advice_u64 = advice_u64
-        self.rng = random.Random(secrets.token_bytes(32) if seed is None
+        self.rng = random.Random(_entropy(mesh, self.dev) if seed is None
                                  else ("zkodst-blind", seed).__repr__())
         self.tw = Blake2bWrite(transcript_mode)
         self.evals: Dict[str, torch.Tensor] = {}
@@ -480,8 +537,9 @@ class Prover:
         them, of the columns whose form is not made yet."""
         names = [nm for nm in names if nm not in self.coeffs]
         if names:
-            coeffs = self.dom.intt(torch.stack([self.evals[nm]
-                                                for nm in names]))
+            coeffs = self.dom.intt(
+                torch.stack([self.evals[nm] for nm in names]),
+                mesh=self.mesh, mesh_axis=self.mesh_axis)
             self.coeffs.update(zip(names, coeffs))
 
     def _commit(self, names: List[str]) -> List:
@@ -490,7 +548,9 @@ class Prover:
         return pcs.commit_columns(self.params,
                                   torch.stack([self.evals[nm]
                                                for nm in names]),
-                                  [self.coeffs[nm] for nm in names], MSM_C)
+                                  [self.coeffs[nm] for nm in names], MSM_C,
+                                  mesh=self.mesh,
+                                  mesh_axis=self.mesh_axis)
 
     def _all_coeffs(self) -> Dict[str, torch.Tensor]:
         """The proof's coefficient forms and the key's (fixed and σ)."""
@@ -510,7 +570,8 @@ class Prover:
                 _u64_tensor(circ.fixed[lk.table_cols[0]], self.dev)[:, 0], u)
             for lk in circ.lookups}
         adv, adv_coeffs = advice_phase(self.params, circ, self.advice_u64,
-                                       self.rng, self.tw, self.metrics)
+                                       self.rng, self.tw, self.metrics,
+                                       self.mesh, self.mesh_axis)
         self.evals.update(zip(circ.advice_names, adv))
         if adv_coeffs is not None:
             self.coeffs.update(zip(circ.advice_names, adv_coeffs))
@@ -553,13 +614,15 @@ class Prover:
             for j, (chunk, (sig, ident)) in enumerate(
                     zip(vk.perm_chunks, chunk_tables(self.pk))):
                 cols = torch.stack([self.evals[c] for c in chunk])
-                z, carry = perm_z_pass(cols, sig, ident, bk, gk, carry, u)
+                z, carry = perm_z_pass(cols, sig, ident, bk, gk, carry, u,
+                                       self.mesh, self.mesh_axis)
                 z[circ.n - BLINDING_ROWS:] = _blinds(self.rng, 1, self.dev)[0]
                 self.evals[f"perm.z{j}"] = z
                 names.append(f"perm.z{j}")
             for i, lk in enumerate(circ.lookups):
                 a_cmp, s_cmp, aps, sps = (t[i] for t in self.lk_data)
-                z = lookup_z_pass(a_cmp, s_cmp, aps, sps, bk, gk, u)
+                z = lookup_z_pass(a_cmp, s_cmp, aps, sps, bk, gk, u,
+                                  self.mesh, self.mesh_axis)
                 z[circ.n - BLINDING_ROWS:] = _blinds(self.rng, 1, self.dev)[0]
                 self.evals[f"{lk.name}.z"] = z
                 names.append(f"{lk.name}.z")
@@ -575,7 +638,8 @@ class Prover:
         for i in range(0, len(names), EXT_GROUP):
             grp = names[i: i + EXT_GROUP]
             ext = self.dom.coeff_to_extended(
-                torch.stack([coeffs[nm] for nm in grp]))
+                torch.stack([coeffs[nm] for nm in grp]), self.mesh,
+                self.mesh_axis)
             out.update(zip(grp, ext))
         return out
 
@@ -583,7 +647,11 @@ class Prover:
         """h = numerator / Z_H on the extended coset, its coefficients cut
         into EXT_FACTOR polynomials of n and committed (phase
         ``prove.quotient``, ``prover.py:751-828``). The fixed and σ
-        extensions depend on the key alone and are kept with it."""
+        extensions depend on the key alone and are kept with it, one set
+        per mesh (``prover.py:781-799``): under a mesh they are made by
+        the sharded transforms at its first proof on every rank alike,
+        whatever proofs the key served before, so that the ranks'
+        collectives stay in one order."""
         pk, dom, n = self.pk, self.dom, self.dom.n
         with _phase(self.metrics, "prove.quotient"):
             coeffs = self._all_coeffs()
@@ -597,10 +665,16 @@ class Prover:
                 static = set(pk.fixed_coeffs) | {
                     f"perm.sigma{i}" for i in range(len(pk.sigma_coeffs))}
                 cache["quotient_names"] = names
+                cache["static_names"] = [nm for nm in names if nm in static]
                 cache["xext"] = dom.coeff_to_extended(e1)
-                cache["static_exts"] = self._extend(
-                    coeffs, [nm for nm in names if nm in static])
-            names, static_exts = cache["quotient_names"], cache["static_exts"]
+                cache["static_exts"] = {}
+            by_mesh = cache["static_exts"]
+            axis = self.mesh_axis
+            key = None if self.mesh is None else (
+                self.mesh, axis if isinstance(axis, str) else tuple(axis))
+            if key not in by_mesh:
+                by_mesh[key] = self._extend(coeffs, cache["static_names"])
+            names, static_exts = cache["quotient_names"], by_mesh[key]
             exts = dict(static_exts)
             exts.update(self._extend(
                 coeffs, [nm for nm in names if nm not in static_exts]))
@@ -610,13 +684,15 @@ class Prover:
                                   cache["xext"])
             del exts                     # the extended columns: free them
             self.lk_data = None
-            h_coeff = dom.extended_to_coeff(h_ext).reshape(EXT_FACTOR, n, 8)
+            h_coeff = dom.extended_to_coeff(
+                h_ext, self.mesh, self.mesh_axis).reshape(EXT_FACTOR, n, 8)
             del h_ext
-            h_evals = dom.ntt(h_coeff)
+            h_evals = dom.ntt(h_coeff, self.mesh, self.mesh_axis)
             for i in range(EXT_FACTOR):
                 self.coeffs[f"h{i}"] = h_coeff[i]
                 self.evals[f"h{i}"] = h_evals[i]
-            for pt in pcs.commit_coeff_many(self.params, h_coeff, MSM_C):
+            for pt in pcs.commit_coeff_many(self.params, h_coeff, MSM_C,
+                                            self.mesh, self.mesh_axis):
                 self.tw.write_point(pt)
         self.challenges["x"] = self.tw.squeeze_challenge()
 
@@ -652,7 +728,8 @@ def create_proof(params: pcs.Params, pk: ProvingKey,
                  advice_u64: Dict[str, torch.Tensor],
                  instance_u64: Dict[str, torch.Tensor],
                  seed: Optional[int] = None, metrics=None,
-                 transcript_mode: str = "v1") -> bytes:
+                 transcript_mode: str = "v1", mesh=None,
+                 mesh_axis="x") -> bytes:
     """The proof's bytes: the advice points, the A′/S′ points, the
     permutation then lookup Z points, the four h points, the evaluations
     and the multiopen (SHPLONK's W and W′ over KZG params; W, the 2k L/R
@@ -662,9 +739,12 @@ def create_proof(params: pcs.Params, pk: ProvingKey,
     SRS's device; instance columns may also be numpy). seed: None draws the
     blinds from OS entropy; an int makes them deterministic (tests and
     golden fixtures only). transcript_mode: "v1" or "halo2ce"
-    (:mod:`.transcript`); the verifier must use the same."""
+    (:mod:`.transcript`); the verifier must use the same. mesh: a
+    :class:`..parallel.bootstrap.Mesh` — every rank calls create_proof
+    with the same arguments and gets the same bytes, the single-device
+    ones (KZG only: IPA params raise NotImplementedError)."""
     pr = Prover(params, pk, advice_u64, instance_u64, seed, metrics,
-                transcript_mode)
+                transcript_mode, mesh, mesh_axis)
     pr.advice()
     pr.lookups()
     pr.grand_products()

@@ -4,7 +4,8 @@ Counterpart of ``zkodst_tpu/proof/srs.py``: a testing SRS from a seeded τ
 with the monomial basis [τ^i]G and the Lagrange basis [L_i(τ)]G, made on
 the device by a fixed-base windowed ladder, and batched commitments of
 evaluation-form polynomials (Lagrange basis) and of coefficient-form
-polynomials (monomial basis) through the Pippenger MSM.
+polynomials (monomial basis) through the Pippenger MSM, on one device or
+with the points sharded over a mesh (:161-193, :240-257).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from ..ops import curve, msm, pycurve
 from ..ops.field import from_limbs16, to_limbs16
 from ..ops.pyfield import FR
+from ..parallel.msm_sharded import msm_many_sharded_mont
 from ..utils.device import resolve
 from .domain import Domain
 
@@ -185,15 +187,21 @@ def get_or_create(k: int, cache_dir: str = ".zkodst_cache", seed: int = 0,
 
 def commit_lagrange_many(params: ParamsKZG, evals_batch: torch.Tensor,
                          c: int = 13, body_bits: Optional[int] = None,
-                         tail_rows: int = 0) -> list:
+                         tail_rows: int = 0, mesh=None,
+                         mesh_axis="x") -> list:
     """Commit B evaluation-form polynomials -> list of B affine points.
 
     evals_batch: (B, n, 8) Fr Montgomery limbs. With `body_bits`, the first
     n − tail_rows rows are bounded by 2^body_bits (u64 witness cells): the
     body MSM zeroes the tail rows and runs only ceil(body_bits / c)
     windows, and the tail_rows full-width rows (blinds) go through a small
-    separate MSM whose sums are added on."""
+    separate MSM whose sums are added on. With `mesh`, the points are
+    sharded over `mesh_axis` (``parallel/msm_sharded.py``), full width: the
+    reference drops the body split there (``prover.py:655``)."""
     g1l = params.g1_lagrange
+    if mesh is not None:
+        return curve.to_affine_ints(msm_many_sharded_mont(
+            g1l, evals_batch, mesh, mesh_axis, c))
     n = evals_batch.shape[1]
     body = evals_batch
     if body_bits is not None and tail_rows:
@@ -213,11 +221,15 @@ def commit_lagrange_many(params: ParamsKZG, evals_batch: torch.Tensor,
 
 
 def commit_coeff_many(params: ParamsKZG, coeffs_batch: torch.Tensor,
-                      c: int = 13) -> list:
+                      c: int = 13, mesh=None, mesh_axis="x") -> list:
     """Commit B coefficient-form polynomials (B, m, 8), m ≤ n, over the
-    monomial basis [τ^i]G -> list of B affine points (``srs.py:251-271``,
-    chunked as ``_msm_chunked`` :133-145)."""
+    monomial basis [τ^i]G -> list of B affine points (``srs.py:240-271``,
+    chunked as ``_msm_chunked`` :133-145; with `mesh`, the points sharded
+    over `mesh_axis`)."""
     m = coeffs_batch.shape[1]
+    if mesh is not None:
+        return curve.to_affine_ints(msm_many_sharded_mont(
+            params.g1[:m], coeffs_batch, mesh, mesh_axis, c))
     accs = None
     for i in range(0, m, MSM_CHUNK):
         part = msm.msm_many_mont(params.g1[i: min(i + MSM_CHUNK, m)],
