@@ -47,8 +47,13 @@ sha256), ``cache`` (two setups from one cache directory: the golden vk
 digest both times, no file written by the second, the golden proof from
 it), ``native_verify`` (the golden proof through the native verifier core
 and through Python ints, three runs each) and ``cli`` (``python -m
-zkodst_tpu_torch prove`` and ``vectors`` in subprocesses). Two more phases drive the IPA commitment backend, each with the counts set
-to 0 before it: ``ipa`` (``setup_blake2f(k=17, n_inst=37, scheme="ipa")``
+zkodst_tpu_torch prove`` and ``vectors`` in subprocesses), then ``bench``
+(``python -m zkodst_tpu_torch bench`` from the ``cache`` phase's files in
+a process of its own: exit 0, the witness throughput first, the prove
+throughput last with the golden seed-2 proof, the mock check, at least
+1024 instances in its DP-scale run and all twelve kernels launched; its
+lines are logged). Two more phases drive the IPA commitment backend,
+each with the counts set to 0 before it: ``ipa`` (``setup_blake2f(k=17, n_inst=37, scheme="ipa")``
 with no cache; 70 generators against the host hash to the curve; the
 EIP-152 proof with blind seed 2, 5600 bytes, twice and byte-equal,
 verified, rejected with a byte of L_1 or of a₀ flipped and as the KZG
@@ -66,7 +71,7 @@ package's bytes, and at K = 10, each rejected with a byte flipped and
 with a wrong value; every Pasta instantiation of kernels 1–3 and 8 held
 to its twin at each of the phase's shapes). The kernel line lists the
 Pasta instantiations that the phase launched beside the twelve. The
-``mesh`` phase, after ``cli``, runs the multi-GPU prover on the one card
+``mesh`` phase, after ``bench``, runs the multi-GPU prover on the one card
 from the ``cache`` phase's files: the flagship proof sharded over NCCL at
 world size 1 and over gloo at world size 2 (two processes on cuda:0),
 each rank a process of its own (``--mesh-rank BACKEND CACHE_DIR``, under
@@ -131,8 +136,8 @@ PASTA_K3_SHA256 = \
 # share cuda:0 (NCCL refuses two ranks on one device)
 MESH_RUNS = (("nccl", 1), ("gloo", 2))
 MESH_TIMEOUT_S = 400                # a run's ranks, or the CLI's, at most
+BENCH_TIMEOUT_S = 300               # the bench command at most
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory (data sheet)
-IMAD_PER_SM_CLOCK = 64              # 32-bit multiply results / SM / clock
 POINT_BYTES = 96                    # a projective point: 24 32-bit words
 SPIN_CYCLES = 10_000_000            # ~5 ms of card time ahead of a timed call
 # 32-bit multiply results in one Montgomery product (8×8 a·b and 8×8 m·p
@@ -178,13 +183,6 @@ T_START = time.perf_counter()
 def log(msg: str) -> None:
     """A comment line, stamped with the seconds since the script began."""
     print(f"# [{time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def call_key(args, kw):
@@ -813,20 +811,6 @@ def kernel_tables():
     return sites, wrappers, plains
 
 
-def card_imad_rate() -> float:
-    """The card's 32-bit multiply results per second: SMs × 64 a clock ×
-    the maximum SM clock (nvidia-smi)."""
-    import torch
-
-    props = torch.cuda.get_device_properties(0)
-    clock = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.split()[0]
-    return props.multi_processor_count * IMAD_PER_SM_CLOCK \
-        * float(clock) * 1e6
-
-
 def idle_kernels(launches, names=None) -> list:
     """The kernels of `names` (every kernel when None) that a path did not
     launch."""
@@ -1094,6 +1078,55 @@ def cli_phase(cache_dir):
     return record, faults
 
 
+def bench_phase(cache_dir):
+    """``python -m zkodst_tpu_torch bench --cache-dir`` (the ``cache``
+    phase's files) in a process of its own, which loads this script's
+    build, with no ``ZKODST_*`` variable set: it must exit 0, print the
+    witness throughput first and the prove throughput last, the seed-2
+    proof golden, the mock check run, at least 1024 instances proved in
+    the DP-scale run, and every kernel launched (its own counts, from
+    setup on). Returns (record, faults)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("ZKODST_")}
+    env["PYTHONPATH"] = ROOT
+    t0 = time.perf_counter()
+    (rc, out, err), = run_apart(
+        [[sys.executable, "-m", "zkodst_tpu_torch", "bench", "--cache-dir",
+          cache_dir]], [env], cache_dir, "bench", BENCH_TIMEOUT_S)
+    record = {"rc": rc, "wall_s": time.perf_counter() - t0}
+    for line in out.splitlines():
+        log(f"bench: {line}")
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    faults = [] if rc == 0 else [f"bench exits {rc}: {err.strip()[-600:]}"]
+    if not lines or lines[0].get("metric") != "blake2f_witness_throughput":
+        faults.append("line 1 is not blake2f_witness_throughput")
+    if len(lines) < 2 or lines[-1].get("metric") != \
+            "blake2f_prove_throughput":
+        faults.append("the last line is not blake2f_prove_throughput")
+        return record, faults
+    record["witness"], record["prove"] = lines[0], lines[-1]
+    diag = lines[-1]["diag"]
+    if diag.get("flagship_golden") != "match":
+        faults.append(f"flagship_golden is {diag.get('flagship_golden')}")
+    if "mock_check_s" not in diag:
+        faults.append("no mock_check_s")
+    total = diag.get("dp_scale", {}).get("instances_total", 0)
+    if total < 1024:
+        faults.append(f"dp_scale proved {total} instances, not 1024")
+    idle = idle_kernels(diag.get("launches", {}), list(SOURCES))
+    if idle:
+        faults.append(f"kernels not launched by bench: {idle}")
+    times = diag["timed_proves_s"]
+    log(f"bench: witness {lines[0]['value']:.1f} compressions/s; prove "
+        f"{lines[-1]['value']:.4f} instances/s, best {min(times):.4f} s, "
+        f"median {diag['median_prove_s']:.4f} s; DP scale "
+        f"{diag.get('dp_scale')}; {record['wall_s']:.1f} s of wall")
+    return record, faults
+
+
 def mesh_rank() -> int:
     """``--mesh-rank BACKEND CACHE_DIR``: one rank of the ``mesh`` phase,
     under the ``torch.distributed`` variables that phase sets, on cuda:0.
@@ -1111,7 +1144,7 @@ def mesh_rank() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from zkodst_tpu_torch import api, kernels
+    from zkodst_tpu_torch import api, bench, kernels
     from zkodst_tpu_torch.kernels import build
     from zkodst_tpu_torch.parallel.bootstrap import init_distributed, \
         make_mesh
@@ -1183,7 +1216,7 @@ def mesh_rank() -> int:
         with Recorder(sites) as one:
             single.prove(*inputs, seed=BLIND_SEED)
             torch.cuda.synchronize()
-        rate = card_imad_rate()
+        rate = bench.int32_rate(torch.device("cuda", 0))
         held = hold_to_twins(largest_new(sharded, set(one.calls), rate),
                              wrappers, plains, rate, faults)
         # a warm prove's calls per kernel, sharded and on one device
@@ -1676,7 +1709,7 @@ def main(argv) -> int:
         return 1
     sys.path.insert(0, ROOT)
     try:
-        from zkodst_tpu_torch import api, kernels, native
+        from zkodst_tpu_torch import api, bench, kernels, native
         from zkodst_tpu_torch.circuit import blake2f as bc
         from zkodst_tpu_torch.circuit import mock
         from zkodst_tpu_torch.kernels import build
@@ -1690,9 +1723,9 @@ def main(argv) -> int:
     with open(GOLDEN) as fh:
         golden = json.load(fh)
 
-    card = card_line()
+    card = bench.card(torch.device("cuda", 0))
     log(f"card: {card}")
-    imad_rate = card_imad_rate()
+    imad_rate = bench.int32_rate(torch.device("cuda", 0))
     log(f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs: "
         f"{imad_rate:.4g} 32-bit multiply results/s; HBM "
         f"{HBM_BYTES_PER_S:.3g} B/s")
@@ -1899,6 +1932,7 @@ def main(argv) -> int:
         phase_line("cache", *cache_phase(inputs, golden, cache_dir),
                    failures)
         phase_line("cli", *cli_phase(cache_dir), failures)
+        phase_line("bench", *bench_phase(cache_dir), failures)
         # -- the multi-GPU prover, its ranks on this one card -------------
         mesh, mesh_faults = mesh_phase(cache_dir)
         phase_line("mesh", mesh, mesh_faults, failures)

@@ -9,9 +9,9 @@
            zkodst_tpu_torch prove --mesh N``; rank 0 alone prints.
   mock     the witness and the constraint check without cryptography
   vectors  the EIP-152 appendix vectors through the batched ``blake2f``
-
-The reference's ``bench`` command waits for the port's benchmark entry
-(ROADMAP §1 item 2).
+  bench    staged JSON lines (:mod:`.bench`): witness throughput, then the
+           flagship's prove throughput at k = 17 from ``--cache-dir`` with
+           its checks; it takes ``--device`` and ``--cache-dir`` only
 """
 
 from __future__ import annotations
@@ -164,6 +164,12 @@ def cmd_vectors(args) -> int:
     return 1 if bad else 0
 
 
+def cmd_bench(args) -> int:
+    from . import bench
+
+    return bench.main(args.device, args.cache_dir)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="zkodst_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -172,6 +178,11 @@ def main(argv=None) -> int:
         p = sub.add_parser(name)
         _add_common(p)
         p.set_defaults(fn=fn)
+    p = sub.add_parser("bench")
+    p.add_argument("--cache-dir", default=".zkodst_cache")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (the default) or cpu")
+    p.set_defaults(fn=cmd_bench)
     args = ap.parse_args(argv)
     return args.fn(args)
 
