@@ -82,6 +82,19 @@ single-device prove does not give it; then ``python -m
 torch.distributed.run --nproc-per-node 2 -m zkodst_tpu_torch prove --mesh
 2`` (gloo, no seed) must print ``"verified": true``. The kernels are built
 once, fresh, by this process; the processes it starts load that build.
+
+Kernels 13 and 14 (``cuda/csrc/blake2f.cu``) replace no Pallas kernel:
+they run the round loops that the JAX package compiles with XLA, the
+circuit's witness stream and the batched compression. Kernel 13 is on
+every proof's path (its launches are counted with the twelve's on each
+path, each of its recorded calls held to its plain version, and a warm
+flagship witness must launch it once and at most WITNESS_MAX_LAUNCHES
+kernels in all); the ``blake2f`` phase holds it to its plain version at
+rounds 0 and 1 too, kernel 14 on the EIP-152 appendix vectors, then runs
+the ``bench`` command's line 1 (8192 compressions) with the counts set to
+0 before it, holds its h' and kernel 14 at that shape to the plain
+version and times it. The ``bench`` phase fails unless the command's own
+process launched kernel 14 in line 1 and kernel 13 in its proves.
 Any failure exits non-zero before the last line. It imports nothing of JAX or
 zkodst_tpu and writes nothing outside the kernel build directories and a
 temporary cache directory that it removes.
@@ -177,6 +190,24 @@ REPLACES = {
 }
 
 
+# kernels 13 and 14: they replace no Pallas kernel, but the round loops the
+# JAX package compiles with XLA (lax.scan); "the twelve" stay the Pallas
+# kernels above
+B2_SOURCES = {"blake2f_witness": "zkodst_tpu_torch/cuda/csrc/blake2f.cu",
+              "blake2f_compress": "zkodst_tpu_torch/cuda/csrc/blake2f.cu"}
+B2_REPLACES = {"blake2f_witness": "zkodst_tpu/circuit/blake2f.py:513",
+               "blake2f_compress": "zkodst_tpu/ops/blake2.py:96"}
+# kernel 13's work per instance: the cells' spreads (16-bit bit interleaves,
+# four shift-and-mask steps of two operations) in its init phase, a G call
+# and its final phase; the 64-bit adds, xors and rotations of a G call (two
+# 32-bit operations each) and its dependent steps (the eight lines of G)
+SPREAD_OPS = 8
+SPREADS_INIT, SPREADS_G, SPREADS_FINAL = 60, 59, 128
+G_WORD_OPS, G_STEPS = 13, 8
+WITNESS_MAX_LAUNCHES = 200     # one warm flagship witness at most (12,780
+                               # as eager ops before kernel 13)
+
+
 T_START = time.perf_counter()
 
 
@@ -262,7 +293,9 @@ TRACE_NAMES = {"chain_cumprod_kernel": "chain_cumprod",
                "ec_add_kernel": "ec_add", "seg_step_kernel": "seg_step",
                "seg_scan_tiles_kernel": "seg_scan_tiles",
                "chain_scan_kernel": "chain_scan_local",
-               "scale_reduce_kernel": "scale_reduce"}
+               "scale_reduce_kernel": "scale_reduce",
+               "blake2f_witness_kernel": "blake2f_witness",
+               "blake2f_compress_kernel": "blake2f_compress"}
 BINOPS = {"0": "mulmod", "1": "addmod", "2": "submod", "kMul": "mulmod",
           "kAdd": "addmod", "kSub": "submod"}
 
@@ -363,6 +396,8 @@ def work(name, args, kw=None):
 
     name = name.split("[")[0]           # a Pasta instantiation's is its
                                         # kernel's
+    if name.startswith("blake2f"):
+        return blake2f_work(name, args, kw or {})
     if name in ("mulmod", "addmod", "submod"):
         a, b = torch.broadcast_tensors(args[1], args[2])
         n = a.numel() // 8
@@ -403,6 +438,28 @@ def work(name, args, kw=None):
         return (POINT_BYTES * B * (n + 1),
                 B * (n - 1) * (c * DBL_OPS + EC_ADD_OPS))
     raise KeyError(name)
+
+
+def blake2f_work(name, args, kw):
+    """(bytes, 32-bit operations) of kernel 13 or 14 on these inputs: every
+    input and output once; kernel 13's spreads and 64-bit word operations,
+    kernel 14's 64-bit word operations (two 32-bit operations each)."""
+    import torch
+
+    from zkodst_tpu_torch.kernels import blake2 as kb
+
+    h, m, t, f = args[:4]
+    rounds = args[4] if len(args) > 4 else kw.get("rounds", 12)
+    held = sum(_held_bytes(x) for x in (h, m, t, f))
+    if name == "blake2f_witness":
+        B = h.shape[0]
+        spreads = SPREADS_INIT + 8 * rounds * SPREADS_G + SPREADS_FINAL
+        return (held + 16 * B * (kb.n_cells(rounds) + 8),
+                B * (SPREAD_OPS * spreads + 2 * G_WORD_OPS * 8 * rounds))
+    n = math.prod(torch.broadcast_shapes(h.shape[:-2], m.shape[:-2],
+                                         t.shape[:-2], f.shape))
+    # 13 word operations a G call, 3 xors into the work vector, 16 out
+    return held + 128 * n, n * 2 * (G_WORD_OPS * 8 * rounds + 19)
 
 
 def tile_args(args, kw) -> dict:
@@ -568,7 +625,7 @@ def path_trace_only(scheme: str) -> int:
                 unnamed)
     if scheme == "ipa":
         trace_phase(lambda: pr2.verify(inst, proof), traced, unnamed)
-    counted = {k: c for k, c in kernels.counts().items() if c}
+    counted = {k: c for k, c in path_counts().items() if c}
     print(json.dumps({"path_trace": {"traced": traced, "counted": counted,
                                      "unnamed": sorted(unnamed)}}),
           flush=True)
@@ -737,9 +794,13 @@ def hold_to_twins(rec, wrappers, plains, imad_rate, failures) -> dict:
         ref = plain(*args, **fresh(kw))
         torch.cuda.synchronize()
         plain_once = (time.perf_counter() - t1) * 1e3
-        err = int((out.to(torch.int64) - ref.to(torch.int64)).abs().max()) \
-            if out.numel() else 0
-        if out.shape != ref.shape or err != 0:
+        outs, refs = ((out, ref) if isinstance(out, tuple)
+                      else ((out,), (ref,)))
+        shaped = all(o.shape == r.shape for o, r in zip(outs, refs))
+        err = max((int((o.to(torch.int64) - r.to(torch.int64)).abs().max())
+                   if shaped and o.numel() else 0)
+                  for o, r in zip(outs, refs))
+        if not shaped or err != 0:
             failures.append(f"{name} {key}: kernel != plain (max abs limb "
                             f"difference {err})")
         del out, ref
@@ -762,6 +823,10 @@ def hold_to_twins(rec, wrappers, plains, imad_rate, failures) -> dict:
             entry["us_per_step"] = entry["ms"] * 1e3 / entry["serial_steps"]
             log(f"scale_reduce {shape}: {entry['serial_steps']} dependent "
                 f"steps in series, {entry['us_per_step']:.3f} us each")
+        if name == "blake2f_witness":   # a chain of G calls an instance
+            entry["serial_steps"] = G_STEPS * 2 * args[4]
+            entry["us_per_step"] = (entry["ms"] * 1e3
+                                    / max(entry["serial_steps"], 1))
         if name == "cumprod_tile":      # latency-bound: its own floor
             m = tile_args(args, kw)["m"]
             entry["cluster"], entry["threads"] = kmul.tile_layout(m)
@@ -776,6 +841,7 @@ def kernel_tables():
     """(sites: wrapper -> the (module, attribute) places the path looks it
     up, wrappers: name -> wrapper, plains: name -> its plain twin)."""
     from zkodst_tpu_torch import kernels
+    from zkodst_tpu_torch.kernels import blake2 as kb
     from zkodst_tpu_torch.kernels import ec as kec
     from zkodst_tpu_torch.kernels import mulmod as kmul
     from zkodst_tpu_torch.kernels import ntt as kntt
@@ -795,8 +861,10 @@ def kernel_tables():
         "seg_scan_tiles": [(msm, "seg_scan_tiles")],
         "chain_scan_local": [(msm, "chain_scan_local")],
         "scale_reduce": [(msm, "scale_reduce")],
+        "blake2f_witness": [(kb, "blake2f_witness")],
     }
     wrappers = {name: fn for name, (fn, _) in kernels.WRAPPERS.items()}
+    wrappers["blake2f_witness"] = kb.blake2f_witness
     plains = {"mulmod": kmul.mulmod_plain, "addmod": kmul.addmod_plain,
               "submod": kmul.submod_plain,
               "chain_cumprod": kmul.chain_cumprod_plain,
@@ -807,8 +875,18 @@ def kernel_tables():
               "seg_step": kec.seg_step_plain,
               "seg_scan_tiles": kec.seg_scan_tiles_plain,
               "chain_scan_local": kec.chain_scan_local_plain,
-              "scale_reduce": kec.scale_reduce_plain}
+              "scale_reduce": kec.scale_reduce_plain,
+              "blake2f_witness": kb.blake2f_witness_plain}
     return sites, wrappers, plains
+
+
+def path_counts() -> dict:
+    """The launches since the last reset of the kernels a proof's path runs:
+    the twelve and kernel 13 (the witness)."""
+    from zkodst_tpu_torch import kernels
+
+    return {**kernels.counts(),
+            "blake2f_witness": kernels.blake2f_counts()["blake2f_witness"]}
 
 
 def idle_kernels(launches, names=None) -> list:
@@ -889,9 +967,99 @@ def mock_phase(pr, inputs, wrappers, plains, imad_rate):
     log(f"mock: {wall:.3f} s, {sum(launches.values())} kernel launches "
         f"{launches}, peak {peak / 2**20:.0f} MiB above the path's")
     return {"wall_s": wall, "kernel_launches": launches,
+            "blake2f_launches": kernels.blake2f_counts(),
             "peak_mib": peak / 2**20,
             "flipped_w_row": row, "flipped_failures": [str(f) for f in bad],
             "twin_shapes": {k: len(v) for k, v in held.items()}}, faults
+
+
+def blake2f_phase(imad_rate):
+    """Kernels 13 and 14 apart from the proof's path: kernel 13 on 37
+    random instances (f mixed) at rounds 0 and 1, kernel 14 on the EIP-152
+    appendix vectors 4–7, each equal to its plain version on the card and
+    the vectors to their digests; then the ``bench`` command's line 1
+    (``bench.bench_witness``: 8192 EIP-152 compressions, 21 calls) with the
+    counts set to 0 just before it and read just after, its h' equal to
+    the plain version's and the digest, and kernel 14 held to its plain
+    version at that shape, timed, with its bound. Returns (record, faults,
+    kernel 14's entry of the kernel line or None)."""
+    import numpy as np
+    import torch
+
+    from zkodst_tpu_torch import bench, kernels
+    from zkodst_tpu_torch.kernels import blake2 as kb
+    from zkodst_tpu_torch.ops import blake2, u64
+
+    faults, record = [], {}
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(13)
+    for rounds in (0, 1):
+        h, m, t = (torch.from_numpy(rng.integers(
+            0, 1 << 32, (N_INST, k, 2), dtype=np.int64)).to(dev)
+            for k in (8, 16, 2))
+        f = torch.from_numpy(rng.integers(0, 2, N_INST)).to(dev)
+        got = kb.blake2f_witness(h, m, t, f, rounds)
+        want = kb.blake2f_witness_plain(h, m, t, f, rounds)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        record[f"witness_rounds_{rounds}"] = "equal" if same else "DIFFERS"
+        if not same:
+            faults.append(f"kernel 13 at rounds {rounds} differs from plain")
+
+    def pairs(words):
+        return torch.from_numpy(u64.from_ints(words).astype(np.int64)).to(
+            dev)[None]
+
+    vectors = {}
+    for v in blake2.EIP152_VECTORS:
+        if v.get("expected") is None:
+            continue
+        rounds, h, m, t, f = blake2.eip152_decode(v["input"])
+        args = (pairs(h), pairs(m), pairs(t), torch.tensor([f], device=dev),
+                rounds)
+        got = kb.blake2f_compress(*args)
+        digest = b"".join(int(x).to_bytes(8, "little")
+                          for x in u64.to_ints(got[0])).hex()
+        ok = (torch.equal(got, kb.blake2f_compress_plain(*args))
+              and digest == v["expected"])
+        vectors[v["n"]] = "ok" if ok else "FAIL"
+        if not ok:
+            faults.append(f"kernel 14 on vector {v['n']}: {digest}")
+    record["vectors"] = vectors
+
+    kernels.reset_counts()
+    line1, out = bench.bench_witness(dev)
+    torch.cuda.synchronize()
+    launches = kernels.blake2f_counts()
+    record["line1"] = line1
+    record["line1_launches"] = launches
+    if not launches["blake2f_compress"]:
+        faults.append(f"line 1 did not launch kernel 14: {launches}")
+    inputs = bench.eip152_batch(dev, out.shape[0])
+    digest = b"".join(int(x).to_bytes(8, "little")
+                      for x in u64.to_ints(out[0])).hex()
+    if not torch.equal(out, kb.blake2f_compress_plain(*inputs, 12)) \
+            or digest != blake2.EIP152_VECTOR["expected"]:
+        faults.append("line 1's h' differs from the plain version's")
+    with Recorder({"blake2f_compress": [(kb, "blake2f_compress")]}) as rec:
+        kb.blake2f_compress(*inputs, 12)
+    held = hold_to_twins(rec, {"blake2f_compress": kb.blake2f_compress},
+                         {"blake2f_compress": kb.blake2f_compress_plain},
+                         imad_rate, faults)
+    entry = None
+    for top, (args, kw) in held.get("blake2f_compress", []):
+        top["plain_ms"] = time_ms(lambda: kb.blake2f_compress_plain(*args),
+                                  3)
+        top["calls"] = launches["blake2f_compress"]
+        entry = {"name": "blake2f_compress", "route": "cuda",
+                 "source": B2_SOURCES["blake2f_compress"],
+                 "replaces": B2_REPLACES["blake2f_compress"],
+                 "launches": launches["blake2f_compress"], **top,
+                 "library_ms": None, "path": "bench line 1",
+                 "compressions_per_s": line1["value"]}
+    log(f"blake2f: kernel 13 at rounds 0, 1: {record['witness_rounds_0']}, "
+        f"{record['witness_rounds_1']}; kernel 14 vectors {vectors}; line 1 "
+        f"{line1['value']:.1f} compressions/s in {launches} launches")
+    return record, faults, entry
 
 
 def chain_phase(pr):
@@ -914,7 +1082,7 @@ def chain_phase(pr):
                            seed=CHAIN_SEED)
     torch.cuda.synchronize()
     prove_s = time.perf_counter() - t0
-    launches = kernels.counts()
+    launches = path_counts()
     if idle_kernels(launches):
         faults.append(f"kernels not launched: {idle_kernels(launches)}")
     if not pr.verify(inst, proof):
@@ -951,7 +1119,7 @@ def halo2ce_phase(pr, inputs):
     proof, inst = pr.prove(*inputs, seed=BLIND_SEED,
                            transcript_mode="halo2ce")
     torch.cuda.synchronize()
-    launches = kernels.counts()
+    launches = path_counts()
     if idle_kernels(launches):
         faults.append(f"kernels not launched: {idle_kernels(launches)}")
     if len(proof) != PROOF_BYTES:
@@ -1035,7 +1203,7 @@ def cache_phase(inputs, golden, cache_dir):
         faults.append("the second setup wrote a file")
     proof, _ = pc.prove(*inputs, seed=BLIND_SEED)
     torch.cuda.synchronize()
-    launches = kernels.counts()
+    launches = path_counts()
     if idle_kernels(launches):
         faults.append(f"kernels not launched: {idle_kernels(launches)}")
     if proof != bytes.fromhex(golden["proof_hex"]):
@@ -1119,6 +1287,12 @@ def bench_phase(cache_dir):
     idle = idle_kernels(diag.get("launches", {}), list(SOURCES))
     if idle:
         faults.append(f"kernels not launched by bench: {idle}")
+    b2 = diag.get("blake2f_launches", {})
+    record["blake2f_launches"] = b2
+    if not b2.get("line1", {}).get("blake2f_compress"):
+        faults.append(f"line 1 did not launch kernel 14: {b2}")
+    if not b2.get("from_setup", {}).get("blake2f_witness"):
+        faults.append(f"the proves did not launch kernel 13: {b2}")
     times = diag["timed_proves_s"]
     log(f"bench: witness {lines[0]['value']:.1f} compressions/s; prove "
         f"{lines[-1]['value']:.4f} instances/s, best {min(times):.4f} s, "
@@ -1173,7 +1347,7 @@ def mesh_rank() -> int:
     proof, inst = pr.prove(*inputs, seed=BLIND_SEED)
     torch.cuda.synchronize()
     rec["prove_cold_s"] = time.perf_counter() - t0
-    rec["launches"] = kernels.counts()
+    rec["launches"] = path_counts()
     rec["peak_bytes"] = torch.cuda.max_memory_allocated()
     rec["phases_s"] = {ph.label: ph.seconds for ph in pr.metrics.phases}
     rec["proof_bytes"] = len(proof)
@@ -1418,7 +1592,7 @@ def ipa_phase(inputs, kzg_proof, kzg_calls, sites, wrappers, plains,
     torch.cuda.synchronize()
     record["verify_s"] = time.perf_counter() - t_ver
     record["wall_s"] = time.perf_counter() - t0
-    launches = kernels.counts()
+    launches = path_counts()
     record["launches"] = launches
     if idle_kernels(launches):
         faults.append(f"kernels not launched: {idle_kernels(launches)}")
@@ -1740,7 +1914,7 @@ def main(argv) -> int:
         for line in rep.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                fn = re.search(r"([a-z_]+_kernel)", m.group(1))
+                fn = re.search(r"([a-z0-9_]+_kernel)", m.group(1))
                 mod = re.search(r"2(F[rq])E", m.group(1))
                 log(f"ptxas {src}: {fn.group(1) if fn else m.group(1)}"
                     + (f"<{mod.group(1)}>" if mod else ""))
@@ -1763,7 +1937,7 @@ def main(argv) -> int:
     accepted = pr.verify(inst, proof)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernels.counts()
+    launches = path_counts()
     copies = kernels.copies()
     for ph in pr.metrics.phases:
         phases[ph.label] = ph.seconds
@@ -1858,6 +2032,18 @@ def main(argv) -> int:
         ("verify", lambda: pr.verify(inst, proof)),
         ("mock", lambda: mock.check(pr.built.circ, adv, inst, "cuda"))))
     del staged
+    # the witness is kernel 13, not _numeric_stream's eager ops
+    kernels.reset_counts()
+    pr.built.witness(*inputs)
+    torch.cuda.synchronize()
+    one = {k: c for k, c in path_counts().items() if c}
+    if one != {"blake2f_witness": 1}:
+        failures.append(f"a flagship witness launched {one}, not kernel 13 "
+                        "once")
+    if profile["witness"]["launches"] > WITNESS_MAX_LAUNCHES:
+        failures.append(f"a warm flagship witness took "
+                        f"{profile['witness']['launches']} launches, over "
+                        f"{WITNESS_MAX_LAUNCHES}")
 
     # -- every kernel against its plain version, at the main path's shapes ----
     sites, wrappers, plains = kernel_tables()
@@ -1885,6 +2071,8 @@ def main(argv) -> int:
     phases["kernel checks"] = time.perf_counter() - t_check
     phase_line("mock", *mock_phase(pr, inputs, wrappers, plains, imad_rate),
                failures)
+    b2_record, b2_faults, b2_entry = blake2f_phase(imad_rate)
+    phase_line("blake2f", b2_record, b2_faults, failures)
     line = []
     for name in wrappers:
         shapes = sorted(records.get(name, []),
@@ -1906,12 +2094,15 @@ def main(argv) -> int:
         log(f"{name}: {calls} calls in the recorded run ({launches[name]} "
             f"launches on the main path), {ms:.3f} ms of device time in "
             f"its trace against {path['path_bound_ms']:.3f} ms at the bound")
-        line.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                     "replaces": REPLACES[name],
+        line.append({"name": name, "route": "cuda",
+                     "source": {**SOURCES, **B2_SOURCES}[name],
+                     "replaces": {**REPLACES, **B2_REPLACES}[name],
                      "launches": launches[name], **top,
                      "library_ms": None, **path,
                      "ptxas": ptxas.get(name),
                      "other_shapes": [e for e, _ in shapes[1:]]})
+    if b2_entry is not None:
+        line.append({**b2_entry, "ptxas": ptxas.get("blake2f_compress")})
     # the prefix product as a whole: kernels 4, 5 and 1 and the copies
     inv = inv_batch_apart()
     if inv is None:
@@ -1938,7 +2129,8 @@ def main(argv) -> int:
         phase_line("mesh", mesh, mesh_faults, failures)
     for entry in line:              # each kernel on the sharded proves
         entry["mesh_path"] = {
-            label: {"launches": run["ranks"][0]["launches"][entry["name"]],
+            label: {"launches": run["ranks"][0]["launches"].get(
+                entry["name"], 0),
                     "new_shape": run["ranks"][0].get("twins", {}).get(
                         entry["name"], [None])[0]}
             for label, run in mesh.items()

@@ -347,3 +347,81 @@ def test_bn254_kernels_refuse_pasta_fields(dev):
         mulmod.cumprod_tile(PASTA_FR, x[:64])
     with pytest.raises(RuntimeError, match="cudaError"):
         ntt.ntt_head(PASTA_FR, x[None], x[:2048], 1024)
+
+
+# -- kernels 13 and 14: the BLAKE2f witness stream and compression -----------
+
+def _b2_words(r, shape):
+    return torch.from_numpy(r.integers(0, 1 << 32, shape + (2,),
+                                       dtype=np.int64))
+
+
+@pytest.mark.parametrize("rounds", [0, 1, 2, 12])
+@pytest.mark.parametrize("B", [1, 5, 37])
+def test_blake2f_witness(dev, B, rounds):
+    """Every cell and h' against the plain stream: a block's four warps
+    partly filled (B = 1, 5) and the flagship's 37 instances, f mixed."""
+    from zkodst_tpu_torch import kernels
+    from zkodst_tpu_torch.kernels import blake2 as kb
+
+    r = np.random.default_rng(90 + B + rounds)
+    h, m, t = (_b2_words(r, (B, n)) for n in (8, 16, 2))
+    f = torch.from_numpy(r.integers(0, 2, B).astype(np.int64))
+    kernels.reset_counts()
+    stream, out = kb.blake2f_witness(h.to(dev), m.to(dev), t.to(dev),
+                                     f.to(dev), rounds)
+    assert kernels.blake2f_counts()["blake2f_witness"] == 1
+    want, wout = kb.blake2f_witness_plain(h, m, t, f, rounds)
+    _same(stream, want)
+    _same(out, wout)
+
+
+@pytest.mark.parametrize("rounds", [0, 1, 10, 12, 21])
+@pytest.mark.parametrize("n", [1, 129, 8192])
+def test_blake2f_compress(dev, n, rounds):
+    from zkodst_tpu_torch import kernels
+    from zkodst_tpu_torch.kernels import blake2 as kb
+
+    r = np.random.default_rng(120 + n + rounds)
+    h, m, t = (_b2_words(r, (n, k)) for k in (8, 16, 2))
+    f = torch.from_numpy(r.integers(0, 2, n).astype(bool))
+    kernels.reset_counts()
+    got = kb.blake2f_compress(h.to(dev), m.to(dev), t.to(dev), f.to(dev),
+                              rounds)
+    assert kernels.blake2f_counts()["blake2f_compress"] == 1
+    _same(got, kb.blake2f_compress_plain(h, m, t, f, rounds))
+
+
+def test_blake2f_compress_broadcast_and_types(dev):
+    """Leading axes broadcast (h a stride-0 view, one t for a (3, 4) batch
+    of messages), int32 halves and int64 flags, as the plain version takes
+    them."""
+    from zkodst_tpu_torch.kernels import blake2 as kb
+    from zkodst_tpu_torch.ops import blake2 as ob
+    from zkodst_tpu_torch.ops import u64
+
+    r = np.random.default_rng(130)
+    v = ob.EIP152_VECTOR
+    h = torch.from_numpy(u64.from_ints(v["h"]).astype(np.int64)).expand(
+        3, 4, 8, 2)
+    m = torch.from_numpy(r.integers(0, 1 << 31, (3, 4, 16, 2),
+                                    dtype=np.int32))    # int32 holds < 2^31
+    t = torch.from_numpy(u64.from_ints(v["t"]).astype(np.int64))
+    f = torch.tensor([[0, 1, 2, 0]] * 3)
+    got = kb.blake2f_compress(h.to(dev), m.to(dev), t.to(dev), f.to(dev))
+    assert got.shape == (3, 4, 8, 2) and got.dtype == torch.int64
+    _same(got, kb.blake2f_compress_plain(h, m, t, f))
+
+
+def test_blake2f_wrappers_reject_bad_input(dev):
+    from zkodst_tpu_torch.kernels import blake2 as kb
+
+    z = {n: torch.zeros((2, n, 2), dtype=torch.int64, device=dev)
+         for n in (8, 16, 2)}
+    f = torch.zeros((2,), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError):
+        kb.blake2f_witness(z[8], z[16], z[2], f.cpu(), 12)
+    with pytest.raises(ValueError):
+        kb.blake2f_witness(z[8].to(torch.int32), z[16], z[2], f, 12)
+    with pytest.raises(ValueError):
+        kb.blake2f_compress(z[8], z[16], z[2], f, -1)

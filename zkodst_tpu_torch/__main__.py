@@ -8,7 +8,8 @@
            ``python -m torch.distributed.run --nproc-per-node N -m
            zkodst_tpu_torch prove --mesh N``; rank 0 alone prints.
   mock     the witness and the constraint check without cryptography
-  vectors  the EIP-152 appendix vectors through the batched ``blake2f``
+  vectors  the EIP-152 appendix vectors through the batched compression
+           (kernel 14 on the card)
   bench    staged JSON lines (:mod:`.bench`): witness throughput, then the
            flagship's prove throughput at k = 17 from ``--cache-dir`` with
            its checks; it takes ``--device`` and ``--cache-dir`` only
@@ -132,6 +133,7 @@ def cmd_vectors(args) -> int:
     import numpy as np
     import torch
 
+    from .kernels import blake2 as kblake2
     from .ops import blake2, u64
     from .utils.device import resolve
 
@@ -154,8 +156,9 @@ def cmd_vectors(args) -> int:
             status = "ok (decode-only)"
         else:
             rounds, h, m, t, f = blake2.eip152_decode(v["input"])
-            out = blake2.blake2f(pairs(h), pairs(m), pairs(t),
-                                 torch.tensor([f], device=dev), rounds)
+            out = kblake2.blake2f_compress(pairs(h), pairs(m), pairs(t),
+                                           torch.tensor([f], device=dev),
+                                           rounds)
             got = b"".join(int(x).to_bytes(8, "little")
                            for x in u64.to_ints(out[0])).hex()
             status = "ok" if got == v["expected"] else f"FAIL: {got}"

@@ -2,7 +2,8 @@
 wins. Counterpart of the repository's root ``bench.py``, on the card.
 
   line 1: blake2f_witness_throughput   B = 8192 EIP-152 compressions
-          through ``ops/blake2.blake2f`` (always printed first)
+          through ``kernels/blake2.blake2f_compress`` (kernel 14 on the
+          card, ``ops/blake2.blake2f`` off it; always printed first)
   line 2: blake2f_prove_throughput     n_inst ÷ the best of N warm proves
           at k = 17 (setup from the cache), verify, the last timed
           prove's phases
@@ -15,7 +16,10 @@ wins. Counterpart of the repository's root ``bench.py``, on the card.
 Off the card (``--device cpu``) only line 1 runs, unless
 ZKODST_BENCH=prove. On the card a failure of the prove stage raises after
 line 1 has printed; a failure of a line-3 check prints the line with
-``stage3_failure`` and returns 1. Times are seconds, unrounded.
+``stage3_failure`` and returns 1. Times are seconds, unrounded. Line 3's
+``launches`` are the twelve ported Pallas kernels' counts from setup on;
+its ``blake2f_launches`` are kernels 13 and 14's in line 1 (``line1``)
+and from setup on (``from_setup``).
 
 Environment: ZKODST_BENCH=auto|prove|witness, ZKODST_BENCH_DEADLINE (s,
 default 3600), ZKODST_BENCH_INSTANCES (default 37), ZKODST_BENCH_REPEATS
@@ -37,6 +41,7 @@ import torch
 
 from . import api, kernels
 from .circuit import mock
+from .kernels import blake2 as kblake2
 from .ops import blake2, u64
 from .utils.device import resolve
 from .utils.timing import profiler_trace
@@ -79,24 +84,32 @@ def int32_rate(dev: torch.device) -> float:
     return sms * INT32_PER_SM_CLOCK * mhz * 1e6
 
 
-def bench_witness(dev: torch.device, batch: int = 8192, iters: int = 20,
-                  oracle_calls: int = 50):
-    """`batch` copies of the EIP-152 vector through ``blake2.blake2f`` on
-    `dev`: one call to warm up, `iters` timed, then `oracle_calls` of the
-    Python-int oracle. Returns (line 1, the last call's h' (batch, 8, 2))."""
+def eip152_batch(dev: torch.device, batch: int):
+    """`batch` copies of the EIP-152 vector's h, m, t (int64 pairs) and f
+    (bool) on `dev`, each contiguous."""
     v = blake2.EIP152_VECTOR
 
     def pairs(words, n):
         one = torch.from_numpy(u64.from_ints(words).astype(np.int64))
         return one.to(dev).expand(batch, n, 2).contiguous()
 
-    h, m, t = pairs(v["h"], 8), pairs(v["m"], 16), pairs(v["t"], 2)
-    f = torch.ones((batch,), dtype=torch.bool, device=dev)
-    out = blake2.blake2f(h, m, t, f, 12)
+    return (pairs(v["h"], 8), pairs(v["m"], 16), pairs(v["t"], 2),
+            torch.ones((batch,), dtype=torch.bool, device=dev))
+
+
+def bench_witness(dev: torch.device, batch: int = 8192, iters: int = 20,
+                  oracle_calls: int = 50):
+    """`batch` copies of the EIP-152 vector through
+    ``kblake2.blake2f_compress`` on `dev`: one call to warm up, `iters`
+    timed, then `oracle_calls` of the Python-int oracle. Returns (line 1,
+    the last call's h' (batch, 8, 2))."""
+    v = blake2.EIP152_VECTOR
+    h, m, t, f = eip152_batch(dev, batch)
+    out = kblake2.blake2f_compress(h, m, t, f, 12)
     _sync(dev)
     t0 = time.perf_counter()
     for _ in range(iters):
-        out = blake2.blake2f(h, m, t, f, 12)
+        out = kblake2.blake2f_compress(h, m, t, f, 12)
     _sync(dev)
     dt = (time.perf_counter() - t0) / iters
     t0 = time.perf_counter()
@@ -271,7 +284,9 @@ def main(device=None, cache_dir: str = ".zkodst_cache") -> int:
         os.environ.get("ZKODST_BENCH_DEADLINE", "3600"))
     mode = os.environ.get("ZKODST_BENCH", "auto")
     dev = resolve(device)
+    kernels.reset_counts()
     wit, _ = bench_witness(dev)
+    line1_launches = kernels.blake2f_counts()
     print(json.dumps(wit), flush=True)
     if mode == "witness" or (dev.type != "cuda" and mode != "prove"):
         return 0
@@ -295,5 +310,7 @@ def main(device=None, cache_dir: str = ".zkodst_cache") -> int:
         traceback.print_exc()
         diag["stage3_failure"] = f"{type(e).__name__}: {e}"
     diag["launches"] = kernels.counts()
+    diag["blake2f_launches"] = {"line1": line1_launches,
+                                "from_setup": kernels.blake2f_counts()}
     print(json.dumps(result), flush=True)
     return 1 if "stage3_failure" in diag else 0

@@ -13,6 +13,9 @@ backends that cannot drift apart:
   the four diagonal ones, so each half-round runs `_g_sequence` once on
   words with a trailing lane axis of 4 and the per-lane streams are laid
   out G-major — the reference's push order. Rounds are a plain loop.
+  This is the plain version of kernel 13 (`kernels/blake2.py`), which
+  `Blake2fCircuit.witness` launches on the card: ~12,780 eager launches
+  there become one.
 
 Row types and gate algebra are documented in the reference module.
 """
@@ -26,12 +29,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..kernels import blake2 as kblake2
 from ..ops import u64
 from ..ops.blake2 import G_INDICES, IV, SIGMA
 from ..utils.device import resolve
 from .expr import Const, V
 from .ir import BLINDING_ROWS, CircuitDef, CopyGroup, Gate, Lookup
-from .spread import spread_int, spread_table, table_u64
+from .spread import spread_int, table_u64
 
 # instance ("pub") column layout, per instance block
 ROW_T = 0          # rows 0,1: t0, t1
@@ -661,7 +665,6 @@ class Blake2fCircuit:
         self._pub_rows = torch.from_numpy(
             (R_PUB * np.arange(n_inst, dtype=np.int64)[:, None]
              + np.arange(R_PUB)[None, :]).ravel()).to(dev)
-        self._spread_tab = torch.from_numpy(spread_table()).to(dev)
 
     def witness(self, h, m, t, f):
         """Batched witness: h (B,8,2), m (B,16,2), t (B,2,2) u64 pairs and
@@ -678,10 +681,9 @@ class Blake2fCircuit:
         h, m, t = pairs(h), pairs(m), pairs(t)
         f = pairs(np.asarray(f).astype(bool))
         assert h.shape == (B, 8, 2), h.shape
-        lo, hi, outputs = _numeric_stream(h, m, t, f, self.rounds,
-                                          self._spread_tab)
-        assert lo.shape[-1] == self.ncells, (lo.shape, self.ncells)
-        stream = torch.stack([lo, hi], dim=-1)          # (B, ncells, 2)
+        # kernel 13 on the card, `_numeric_stream` on the CPU
+        stream, outputs = kblake2.blake2f_witness(h, m, t, f, self.rounds)
+        assert stream.shape[1] == self.ncells, (stream.shape, self.ncells)
 
         adv = {}
         for col in ADVICE:

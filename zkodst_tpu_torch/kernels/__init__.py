@@ -8,12 +8,15 @@ accepted launch adds one to its entry point's count (``build.call``);
 :func:`reset_counts` and :func:`counts` read them per wrapper;
 :func:`copies` reads the binop operands copied whole since the reset.
 The Pasta instantiations of kernels 1–3 and 8 (the IPA backend's second
-curve) are counted apart (:data:`PASTA_WRAPPERS`, :func:`pasta_counts`).
+curve) are counted apart (:data:`PASTA_WRAPPERS`, :func:`pasta_counts`),
+and so are kernels 13 and 14, the BLAKE2f witness stream and compression,
+which replace no Pallas kernel (:data:`BLAKE2F_WRAPPERS`,
+:func:`blake2f_counts`; they take int64 word pairs).
 """
 
 from __future__ import annotations
 
-from . import build, ec, mulmod, ntt
+from . import blake2, build, ec, mulmod, ntt
 
 # wrapper -> (wrapper function, its C entry point)
 WRAPPERS = {
@@ -40,6 +43,12 @@ PASTA_WRAPPERS = {
     if name in ("mulmod", "addmod", "submod")}
 PASTA_WRAPPERS["ec_add[pallas]"] = (ec.ec_add, "zk_ec_add[pallas]")
 
+# kernels 13 and 14: the round loops the JAX package compiles with XLA
+BLAKE2F_WRAPPERS = {
+    "blake2f_witness": (blake2.blake2f_witness, "zk_blake2f_witness"),
+    "blake2f_compress": (blake2.blake2f_compress, "zk_blake2f_compress"),
+}
+
 
 def reset_counts() -> None:
     build.LAUNCHES.clear()
@@ -55,6 +64,11 @@ def counts() -> dict:
 def pasta_counts() -> dict:
     return {name: build.LAUNCHES.get(entry, 0)
             for name, (_, entry) in PASTA_WRAPPERS.items()}
+
+
+def blake2f_counts() -> dict:
+    return {name: build.LAUNCHES.get(entry, 0)
+            for name, (_, entry) in BLAKE2F_WRAPPERS.items()}
 
 
 def copies() -> dict:

@@ -26,7 +26,7 @@ from typing import Dict
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "cuda" / "csrc"
 BUILD_DIR = _PKG / "cuda" / "build"
-SOURCES = ("mulmod", "ec", "ntt")
+SOURCES = ("mulmod", "ec", "ntt", "blake2f")
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
@@ -51,6 +51,10 @@ SIGNATURES = {
     "ntt": {
         "zk_ntt_tail": [_P, _P, _P, _LL, _LL, _LL, _I, _P],
         "zk_ntt_head": [_P, _P, _P, _LL, _LL, _LL, _I, _P],
+    },
+    "blake2f": {
+        "zk_blake2f_witness": [_P, _P, _P, _P, _P, _P, _LL, _I, _P],
+        "zk_blake2f_compress": [_P, _P, _P, _P, _P, _LL, _LL, _P],
     },
 }
 
