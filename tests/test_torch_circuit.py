@@ -42,10 +42,10 @@ def test_layout_equals_jax(circuits):
         assert (a.col_a, a.col_b) == (b.col_a, b.col_b)
         np.testing.assert_array_equal(a.rows_a, b.rows_a)
         np.testing.assert_array_equal(a.rows_b, b.rows_b)
-    assert sorted(tc._scatter) == sorted(jc._scatter)
+    assert sorted(tc.plan.scatter) == sorted(jc._scatter)
     for col, (rows, idxs) in jc._scatter.items():
-        np.testing.assert_array_equal(tc._scatter[col][0].numpy(), rows)
-        np.testing.assert_array_equal(tc._scatter[col][1].numpy(), idxs)
+        np.testing.assert_array_equal(tc.plan.scatter[col][0].numpy(), rows)
+        np.testing.assert_array_equal(tc.plan.scatter[col][1].numpy(), idxs)
 
 
 def test_witness_rounds12_equals_oracle(circuits):

@@ -376,6 +376,53 @@ def test_blake2f_witness(dev, B, rounds):
     _same(out, wout)
 
 
+def _b2_plan(rounds, device):
+    from zkodst_tpu_torch.circuit import blake2f as bc
+
+    lay = bc._Layout()
+    bc._schedule(lay, rounds)
+    return bc._placement(lay, 1 << 17, device)
+
+
+@pytest.mark.parametrize("B,rounds", [(1, 0), (2, 1), (5, 2), (37, 12)])
+def test_blake2f_advice(dev, B, rounds):
+    """The whole advice and instance columns against the plain stream and
+    scatter on the card, f mixed: one launch."""
+    from zkodst_tpu_torch import kernels
+    from zkodst_tpu_torch.kernels import blake2 as kb
+
+    r = np.random.default_rng(140 + B + rounds)
+    h, m, t = (_b2_words(r, (B, n)).to(dev) for n in (8, 16, 2))
+    f = torch.from_numpy(r.integers(0, 2, B).astype(np.int64)).to(dev)
+    plan = _b2_plan(rounds, dev)
+    kernels.reset_counts()
+    cols = kb.blake2f_advice(h, m, t, f, rounds, plan)
+    assert kernels.blake2f_counts()["blake2f_advice"] == 1
+    _same(cols, kb.blake2f_advice_plain(h, m, t, f, rounds, plan))
+
+
+def test_blake2f_circuit_witness_on_the_card(dev):
+    """Blake2fCircuit.witness on the card equals it on the CPU, column for
+    column, through one launch of the advice kernel."""
+    from zkodst_tpu_torch import kernels
+    from zkodst_tpu_torch.circuit import blake2f as bc
+
+    r = np.random.default_rng(150)
+    h, m, t = (r.integers(0, 1 << 32, (3, n, 2), dtype=np.uint32)
+               for n in (8, 16, 2))
+    f = np.array([True, False, True])
+    kernels.reset_counts()
+    adv, inst = bc.Blake2fCircuit(k=17, n_inst=3, rounds=2,
+                                  device=dev).witness(h, m, t, f)
+    assert kernels.blake2f_counts()["blake2f_advice"] == 1
+    want, winst = bc.Blake2fCircuit(k=17, n_inst=3, rounds=2,
+                                    device="cpu").witness(h, m, t, f)
+    assert list(adv) == list(want)
+    for col in want:
+        _same(adv[col], want[col])
+    _same(inst["pub"], winst["pub"])
+
+
 @pytest.mark.parametrize("rounds", [0, 1, 10, 12, 21])
 @pytest.mark.parametrize("n", [1, 129, 8192])
 def test_blake2f_compress(dev, n, rounds):
@@ -413,6 +460,20 @@ def test_blake2f_compress_broadcast_and_types(dev):
     _same(got, kb.blake2f_compress_plain(h, m, t, f))
 
 
+@pytest.mark.parametrize("dtype", [torch.bool, torch.uint8, torch.int32,
+                                   torch.int64, torch.float32])
+def test_blake2f_compress_flag_types(dev, dtype):
+    """Flags of each type go to the kernel as they are (a float is cast to
+    bool first)."""
+    from zkodst_tpu_torch.kernels import blake2 as kb
+
+    r = np.random.default_rng(160)
+    h, m, t = (_b2_words(r, (70, k)) for k in (8, 16, 2))
+    f = torch.from_numpy(r.integers(0, 3, 70)).to(dtype)
+    got = kb.blake2f_compress(h.to(dev), m.to(dev), t.to(dev), f.to(dev))
+    _same(got, kb.blake2f_compress_plain(h, m, t, f))
+
+
 def test_blake2f_wrappers_reject_bad_input(dev):
     from zkodst_tpu_torch.kernels import blake2 as kb
 
@@ -425,3 +486,5 @@ def test_blake2f_wrappers_reject_bad_input(dev):
         kb.blake2f_witness(z[8].to(torch.int32), z[16], z[2], f, 12)
     with pytest.raises(ValueError):
         kb.blake2f_compress(z[8], z[16], z[2], f, -1)
+    with pytest.raises(ValueError):       # the placement on the host
+        kb.blake2f_advice(z[8], z[16], z[2], f, 1, _b2_plan(1, "cpu"))

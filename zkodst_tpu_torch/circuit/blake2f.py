@@ -13,9 +13,11 @@ backends that cannot drift apart:
   the four diagonal ones, so each half-round runs `_g_sequence` once on
   words with a trailing lane axis of 4 and the per-lane streams are laid
   out G-major — the reference's push order. Rounds are a plain loop.
-  This is the plain version of kernel 13 (`kernels/blake2.py`), which
-  `Blake2fCircuit.witness` launches on the card: ~12,780 eager launches
-  there become one.
+  With the scatter into the columns it is the plain version of kernel 13
+  (`kernels/blake2.blake2f_advice`), which `Blake2fCircuit.witness`
+  launches on the card through the placement table that `_placement`
+  makes from the layout: one memset and one launch, where the stream and
+  its scatter as eager operations took ~12,780 launches.
 
 Row types and gate algebra are documented in the reference module.
 """
@@ -637,67 +639,71 @@ class Blake2fCircuit:
             instance_len={"pub": R_PUB * n_inst})
         self.circ.validate()
 
-        # witness scatter plan, as target rows and stream indices tiled
-        # over the instances (tensors on the device)
-        by_col: Dict[str, List[Tuple[int, int]]] = defaultdict(list)
-        for col, row, idx in lay.place:
-            by_col[col].append((row, idx))
-        cby: Dict[str, List[Tuple[int, int]]] = defaultdict(list)
-        for col, row, val in lay.consts:
-            cby[col].append((row, val))
-        dev = self.device
-
-        def rows_of(rows):
-            return torch.from_numpy(
-                (np.asarray(rows, np.int64)[None, :]
-                 + inst_off[:, None]).ravel()).to(dev)
-
-        self._scatter = {
-            col: (rows_of([p[0] for p in ps]),
-                  torch.tensor([p[1] for p in ps], device=dev))
-            for col, ps in by_col.items()}
-        self._const_scatter = {
-            col: (rows_of([p[0] for p in ps]),
-                  torch.from_numpy(np.tile(
-                      u64.from_ints([p[1] for p in ps]).astype(np.int64),
-                      (n_inst, 1))).to(dev))
-            for col, ps in cby.items()}
-        self._pub_rows = torch.from_numpy(
-            (R_PUB * np.arange(n_inst, dtype=np.int64)[:, None]
-             + np.arange(R_PUB)[None, :]).ravel()).to(dev)
+        self.plan = _placement(lay, n, self.device)
 
     def witness(self, h, m, t, f):
         """Batched witness: h (B,8,2), m (B,16,2), t (B,2,2) u64 pairs and
         f (B,) flags (numpy or tensors), B = n_inst. Returns (advice dict,
         instance dict), each column an (n, 2) int64 tensor of u64 pairs on
-        the circuit's device."""
-        dev = self.device
-        B, n = self.n_inst, 1 << self.k
+        the circuit's device: views of one buffer that kernel 13 writes on
+        the card (one host-to-device copy of the inputs, one memset, one
+        launch) and its plain version fills on the CPU."""
+        B = self.n_inst
+        words = [np.asarray(x).astype(np.int64).ravel()
+                 for x in (h, m, t, np.asarray(f).astype(bool))]
+        assert [w.size for w in words] == [16 * B, 32 * B, 4 * B, B], \
+            [w.size for w in words]
+        flat = torch.as_tensor(np.concatenate(words), device=self.device)
+        h, m, t, f = (x.view(shape) for x, shape in zip(
+            flat.split([w.size for w in words]),
+            ((B, 8, 2), (B, 16, 2), (B, 2, 2), (B,))))
+        cols = kblake2.blake2f_advice(h, m, t, f, self.rounds, self.plan)
+        return ({col: cols[j] for j, col in enumerate(ADVICE)},
+                {"pub": cols[-1]})
 
-        def pairs(x):
-            return torch.as_tensor(np.asarray(x).astype(np.int64),
-                                   device=dev)
 
-        h, m, t = pairs(h), pairs(m), pairs(t)
-        f = pairs(np.asarray(f).astype(bool))
-        assert h.shape == (B, 8, 2), h.shape
-        # kernel 13 on the card, `_numeric_stream` on the CPU
-        stream, outputs = kblake2.blake2f_witness(h, m, t, f, self.rounds)
-        assert stream.shape[1] == self.ncells, (stream.shape, self.ncells)
+def _placement(lay: _Layout, n: int, dev) -> kblake2.Placement:
+    """Where each cell of one instance's stream goes, from the layout: the
+    plain version's scatter by column and the kernel's table by stream
+    index (``cuda/csrc/blake2f.cuh``, ``place_cell``)."""
+    cols = {col: j for j, col in enumerate(ADVICE)}
+    assert len(ADVICE) * n < 1 << 31, "placements are int32 col·n + row"
+    targets = [(col, row) for col, row, _ in lay.place] \
+        + [(col, row) for col, row, _ in lay.consts]
+    assert len(set(targets)) == len(targets), "a cell placed twice"
+    by_col: Dict[str, List[Tuple[int, int]]] = defaultdict(list)
+    per_idx: List[List[int]] = [[] for _ in range(lay.nidx)]
+    for col, row, idx in lay.place:
+        by_col[col].append((row, idx))
+        per_idx[idx].append(cols[col] * n + row)
+    slots = np.full((lay.nidx, 4), -1, np.int32)
+    more: List[int] = []
+    for idx, dsts in enumerate(per_idx):
+        if len(dsts) <= 4:
+            slots[idx, :len(dsts)] = dsts
+        else:
+            slots[idx, :3] = dsts[:3]
+            slots[idx, 3] = -2 - len(more)
+            more += dsts[3:] + [-1]
+    cby: Dict[str, List[Tuple[int, int]]] = defaultdict(list)
+    for col, row, val in lay.consts:
+        cby[col].append((row, val))
 
-        adv = {}
-        for col in ADVICE:
-            arr = torch.zeros((n, 2), dtype=torch.int64, device=dev)
-            if col in self._scatter:
-                rows, idxs = self._scatter[col]
-                arr[rows] = stream[:, idxs].reshape(-1, 2)
-            if col in self._const_scatter:
-                rows, vals = self._const_scatter[col]
-                arr[rows] = vals
-            adv[col] = arr
+    def tensor(x, dtype=torch.int64):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
 
-        fcol = torch.stack([f, torch.zeros_like(f)], dim=-1)
-        block = torch.cat([t, fcol[:, None, :], h, m, outputs], dim=-2)
-        pub = torch.zeros((n, 2), dtype=torch.int64, device=dev)
-        pub[self._pub_rows] = block.reshape(-1, 2)
-        return adv, {"pub": pub}
+    return kblake2.Placement(
+        columns=tuple(ADVICE), n=n, rows=lay.r, pub_rows=R_PUB,
+        cells=lay.nidx,
+        scatter={col: (tensor([p[0] for p in ps]), tensor([p[1] for p in ps]))
+                 for col, ps in by_col.items()},
+        const_scatter={col: (tensor([p[0] for p in ps]),
+                             tensor(u64.from_ints([p[1] for p in ps])
+                                    .astype(np.int64)))
+                       for col, ps in cby.items()},
+        slots=tensor(slots, torch.int32),
+        more=tensor(more + [-1], torch.int32),
+        const_dst=tensor([cols[col] * n + row for col, row, _ in lay.consts],
+                         torch.int32),
+        const_val=tensor(u64.from_ints([v for _, _, v in lay.consts])
+                         .astype(np.int64).reshape(-1, 2)))

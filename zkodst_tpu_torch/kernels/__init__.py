@@ -9,9 +9,10 @@ accepted launch adds one to its entry point's count (``build.call``);
 :func:`copies` reads the binop operands copied whole since the reset.
 The Pasta instantiations of kernels 1–3 and 8 (the IPA backend's second
 curve) are counted apart (:data:`PASTA_WRAPPERS`, :func:`pasta_counts`),
-and so are kernels 13 and 14, the BLAKE2f witness stream and compression,
-which replace no Pallas kernel (:data:`BLAKE2F_WRAPPERS`,
-:func:`blake2f_counts`; they take int64 word pairs).
+and so are kernels 13 and 14, the BLAKE2f witness (into the circuit's
+columns, or as a stream) and compression, which replace no Pallas kernel
+(:data:`BLAKE2F_WRAPPERS`, :func:`blake2f_counts`; they take int64 word
+pairs).
 """
 
 from __future__ import annotations
@@ -43,8 +44,10 @@ PASTA_WRAPPERS = {
     if name in ("mulmod", "addmod", "submod")}
 PASTA_WRAPPERS["ec_add[pallas]"] = (ec.ec_add, "zk_ec_add[pallas]")
 
-# kernels 13 and 14: the round loops the JAX package compiles with XLA
+# kernels 13 (its two entry points: the circuit's columns, the stream) and
+# 14: the round loops the JAX package compiles with XLA
 BLAKE2F_WRAPPERS = {
+    "blake2f_advice": (blake2.blake2f_advice, "zk_blake2f_advice"),
     "blake2f_witness": (blake2.blake2f_witness, "zk_blake2f_witness"),
     "blake2f_compress": (blake2.blake2f_compress, "zk_blake2f_compress"),
 }

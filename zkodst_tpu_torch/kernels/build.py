@@ -53,8 +53,10 @@ SIGNATURES = {
         "zk_ntt_head": [_P, _P, _P, _LL, _LL, _LL, _I, _P],
     },
     "blake2f": {
-        "zk_blake2f_witness": [_P, _P, _P, _P, _P, _P, _LL, _I, _P],
-        "zk_blake2f_compress": [_P, _P, _P, _P, _P, _LL, _LL, _P],
+        "zk_blake2f_advice": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _P, _LL,
+                              _P, _LL, _LL, _I, _P],
+        "zk_blake2f_witness": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P],
+        "zk_blake2f_compress": [_P, _P, _P, _P, _I, _P, _LL, _LL, _P],
     },
 }
 
@@ -161,7 +163,9 @@ def call(lib: str, fn: str, *args, tag=None) -> None:
     the launch under ``fn[tag]``."""
     import torch
 
-    stream = torch.cuda.current_stream().cuda_stream
+    # the handle of torch.cuda.current_stream() without building its
+    # Stream object (a few µs of a launch's host time)
+    stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
     err = getattr(build().libs[lib], fn)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed with cudaError {err}")
