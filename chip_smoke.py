@@ -67,10 +67,14 @@ against the host; the toy circuit's IPA proof on the card against the JAX
 package's sha256; the flagship IPA proof against the port's own pin) and
 ``pasta`` (commit, open and verify
 of one polynomial on the pallas curve at K = 3, against the JAX
-package's bytes, and at K = 10, each rejected with a byte flipped and
-with a wrong value; every Pasta instantiation of kernels 1–3 and 8 held
-to its twin at each of the phase's shapes). The kernel line lists the
-Pasta instantiations that the phase launched beside the twelve. The
+package's bytes, and at K = 10 and K = 17 (2^17 generators, the
+flagship's n) against the port's pins, each rejected with a byte flipped
+and with a wrong value; the MSMs on the pallas instances of kernels 9–12,
+kernel 8 on pallas at most PASTA_EC_ADD_MAX times; every Pasta
+instantiation of kernels 1–3 and 8–12 held to its twin at each of the
+phase's shapes; an empty kernel timed beside them). The kernel line and
+its ptxas records list the Pasta instantiations that the phase launched
+apart from the BN254 instances. The
 ``mesh`` phase, after ``bench``, runs the multi-GPU prover on the one card
 from the ``cache`` phase's files: the flagship proof sharded over NCCL at
 world size 1 and over gloo at world size 2 (two processes on cuda:0),
@@ -144,10 +148,16 @@ TOY_IPA_BYTES = 1280
 # takes hours on a CPU), so this is not the reference's
 FLAGSHIP_IPA_SHA256 = \
     "b0d0bac1f6122db034e611869baa1dc0281e3fca25537632eb13a9b503ad12bc"
-# the JAX package's pallas opening of tests/test_ipa_pasta.py's inputs
-# (K = 3), as tests/test_torch_ipa_pasta.py pins it
-PASTA_K3_SHA256 = \
-    "45ec9cce8eb33a67d7b2aaf18b264418dfae711658e1309df5473a1edc4d9524"
+# the pasta phase's openings by K, sha256 of the commitment and the proof:
+# at K = 3 the JAX package's opening of tests/test_ipa_pasta.py's inputs,
+# as tests/test_torch_ipa_pasta.py pins it; at K = 10 and K = 17 (random
+# coefficients) the port's own pins from its card runs, the JAX package
+# having no run at those sizes
+PASTA_PINS = {
+    3: "45ec9cce8eb33a67d7b2aaf18b264418dfae711658e1309df5473a1edc4d9524",
+    10: "cbead0527419b08d120f95fa1b68a539303c070d29845c8b17e85298361a1b55",
+    17: "eca162d58716465913e49f795aa18882c8332c0ea537870b877ae7956239825d",
+}
 # the mesh phase's runs on the one card: (backend, ranks); two gloo ranks
 # share cuda:0 (NCCL refuses two ranks on one device)
 MESH_RUNS = (("nccl", 1), ("gloo", 2))
@@ -317,11 +327,23 @@ def traced_kernel(key: str):
     return next((w for k, w in TRACE_NAMES.items() if k in key), None)
 
 
+def pasta_tag(mangled: str):
+    """The Pasta instantiation a kernel's mangled name is (``pasta_fp``,
+    ``pasta_fr`` or ``pallas``, as the launch counts tag them), or None
+    for a BN254 instance."""
+    for key, tag in (("8PallasFp", "pasta_fp"), ("8PallasFr", "pasta_fr"),
+                     ("6Pallas", "pallas")):
+        if key in mangled:
+            return tag
+    return None
+
+
 def ptxas_table(reports):
     """wrapper -> {registers, stack_frame_bytes, spill_bytes, smem_bytes},
-    the largest over the wrapper's instances (Fr and Fq), from the ptxas -v
-    reports; a device function compiled out of line is charged to no
-    wrapper."""
+    the largest over the wrapper's BN254 instances (Fr and Fq), from the
+    ptxas -v reports; a Pasta instance is its own row, under the name its
+    launches count as (``seg_step[pallas]``, ``mulmod[pasta_fp]``, …). A
+    device function compiled out of line is charged to no wrapper."""
     table = {}
     for rep in reports.values():
         name = None
@@ -329,6 +351,9 @@ def ptxas_table(reports):
             m = re.search(r"Function properties for (\w+)", line)
             if m:
                 name = traced_kernel(m.group(1))
+                tag = pasta_tag(m.group(1))
+                if name is not None and tag is not None:
+                    name = f"{name}[{tag}]"
                 continue
             if name is None:
                 continue
@@ -1861,27 +1886,44 @@ def ipa_phase(inputs, kzg_proof, kzg_calls, sites, wrappers, plains,
     return record, faults
 
 
+# where kernels 8–12's wrappers take `curve` among their positional
+# arguments
+CURVE_ARG = {"ec_add": 2, "seg_step": 3, "seg_scan_tiles": 2,
+             "chain_scan_local": 3, "scale_reduce": 2}
+# the ec_add[pallas] launches the pasta phase may make (the folds, the U/H
+# tables and L + R; the reference's ladder took 10,483 in the phase at
+# K = 3 and 10)
+PASTA_EC_ADD_MAX = 1000
+
+
 def pasta_classify(name, args, kw):
     """A wrapper call's Pasta instantiation (``mulmod[pasta_fp]``,
-    ``ec_add[pallas]``, …), or None for a BN254 call."""
-    if name == "ec_add":
-        curve = args[2] if len(args) > 2 else kw.get("curve")
+    ``ec_add[pallas]``, ``seg_step[pallas]``, …), or None for a BN254
+    call."""
+    if name in CURVE_ARG:
+        at = CURVE_ARG[name]
+        curve = args[at] if len(args) > at else kw.get("curve")
         return None if curve is None or not curve.kernel_id \
-            else f"ec_add[{curve.name}]"
+            else f"{name}[{curve.name}]"
     return None if args[0].kernel_id < 2 else f"{name}[{args[0].name}]"
 
 
 def pasta_phase(imad_rate):
     """Commit, open and verify one polynomial on the pallas curve at K = 3
-    (the reference's inputs, its bytes against the JAX pin) and K = 10
-    (random coefficients), each verified and rejected with a wrong value
-    and with a byte flipped; each Pasta instantiation held to its twin at
-    every shape of the phase. Returns (record, faults, held records)."""
+    (the reference's inputs, its bytes against the JAX pin), K = 10 and
+    K = 17 (random coefficients; the port's own pins), each verified and
+    rejected with a wrong value and with a byte flipped; the MSMs on the
+    pallas instances of kernels 9–12, kernel 8 at most PASTA_EC_ADD_MAX
+    times; each Pasta instantiation held to its twin at every shape of
+    the phase; an empty kernel timed as the kernels are (the launch
+    floor). Returns (record, faults, held records)."""
     import torch
 
     from zkodst_tpu_torch import kernels
     from zkodst_tpu_torch.kernels import ec as kec
     from zkodst_tpu_torch.kernels import mulmod as kmul
+    from zkodst_tpu_torch.ops import msm
+    from zkodst_tpu_torch.ops.curve import BN254
     from zkodst_tpu_torch.ops.field import PASTA_FR
     from zkodst_tpu_torch.ops.pyfield import VESTA_BASE
     from zkodst_tpu_torch.proof import ipa
@@ -1893,52 +1935,95 @@ def pasta_phase(imad_rate):
     sites = {name: [(kmul, name)] for name in ("mulmod", "addmod",
                                                "submod")}
     sites["ec_add"] = [(kec, "ec_add")]
+    for name in ("seg_step", "seg_scan_tiles", "chain_scan_local",
+                 "scale_reduce"):
+        sites[name] = [(msm, name)]
+
+    def run(st):
+        """commit, open, verify of one K's state: (times, commitment, proof,
+        verdict)"""
+        t1 = time.perf_counter()
+        com = ipa.commit(st["params"], st["cm"], st["blind"])
+        t2 = time.perf_counter()
+        tw = Blake2bWrite("pasta")
+        ipa.open_poly(st["params"], st["cm"], st["blind"], st["x"], st["v"],
+                      tw, rng=random.Random(1))
+        proof = tw.finalize()
+        t3 = time.perf_counter()
+        ok = ipa.verify_poly(st["params"], com, st["x"], st["v"],
+                             Blake2bRead(proof, "pasta"), n=st["n"])
+        t4 = time.perf_counter()
+        return ({"commit_s": t2 - t1, "open_s": t3 - t2,
+                 "verify_s": t4 - t3}, com, proof, ok)
+
+    # the counted pass: every call's inputs kept, its work counted
+    states = {}
     kernels.reset_counts()
     with Recorder(sites, pasta_classify) as rec:
-        for k in (3, 10):
+        for k in PASTA_PINS:
             n = 1 << k
             rnd = random.Random(k)
             coeffs = ([(7 * i + 3) % VESTA_BASE for i in range(n)] if k == 3
                       else [rnd.randrange(VESTA_BASE) for _ in range(n)])
-            x, blind = 987654321, 12345
-            v = 0
+            st = {"n": n, "x": 987654321, "blind": 12345, "v": 0}
             for c in reversed(coeffs):
-                v = (v * x + c) % VESTA_BASE
+                st["v"] = (st["v"] * st["x"] + c) % VESTA_BASE
             t0 = time.perf_counter()
-            params = ipa.setup(k, curve_name="pasta", device="cuda")
+            st["params"] = ipa.setup(k, curve_name="pasta", device="cuda")
             torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            cm = PASTA_FR.from_ints(coeffs, "cuda")
-            com = ipa.commit(params, cm, blind)
-            t2 = time.perf_counter()
-            tw = Blake2bWrite("pasta")
-            ipa.open_poly(params, cm, blind, x, v, tw, rng=random.Random(1))
-            proof = tw.finalize()
-            t3 = time.perf_counter()
-            ok = ipa.verify_poly(params, com, x, v,
-                                 Blake2bRead(proof, "pasta"), n=n)
-            t4 = time.perf_counter()
-            bad = ipa.verify_poly(params, com, x, v, Blake2bRead(
-                flipped(proof, 1), "pasta"), n=n)
-            wrong = ipa.verify_poly(params, com, x, (v + 1) % VESTA_BASE,
+            setup_s = time.perf_counter() - t0
+            st["cm"] = PASTA_FR.from_ints(coeffs, "cuda")
+            times, com, proof, ok = run(st)
+            bad = ipa.verify_poly(st["params"], com, st["x"], st["v"],
+                                  Blake2bRead(flipped(proof, 1), "pasta"),
+                                  n=n)
+            wrong = ipa.verify_poly(st["params"], com, st["x"],
+                                    (st["v"] + 1) % VESTA_BASE,
                                     Blake2bRead(proof, "pasta"), n=n)
+            st["out"] = (com, proof)
+            states[k] = st
             sha = hashlib.sha256(compress_pasta(com) + proof).hexdigest()
-            record[f"K{k}"] = {"setup_s": t1 - t0, "commit_s": t2 - t1,
-                               "open_s": t3 - t2, "verify_s": t4 - t3,
+            record[f"K{k}"] = {"setup_s": setup_s, "recorded_pass": times,
                                "proof_bytes": len(proof), "sha256": sha}
             if not ok:
                 faults.append(f"K={k}: the opening does not verify")
             if bad or wrong:
                 faults.append(f"K={k}: accepts a flipped byte ({bad}) or a "
                               f"wrong value ({wrong})")
-            if k == 3 and sha != PASTA_K3_SHA256:
-                faults.append(f"K=3: the opening is not the JAX package's "
-                              f"(sha256 {sha})")
-            log(f"pasta K={k}: setup {t1 - t0:.3f} s, commit {t2 - t1:.3f} "
-                f"s, open {t3 - t2:.3f} s, verify {t4 - t3:.3f} s, "
+            if sha != PASTA_PINS[k]:
+                faults.append(f"K={k}: the opening is not "
+                              f"{'the JAX package' if k == 3 else 'pinned'}"
+                              f" (sha256 {sha})")
+            log(f"pasta K={k}: setup {setup_s:.3f} s, commit "
+                f"{times['commit_s']:.4f} s, open {times['open_s']:.4f} s, "
+                f"verify {times['verify_s']:.4f} s (recorded), "
                 f"{len(proof)} bytes, sha256 {sha}")
     launches = kernels.pasta_counts()
     record["launches"] = launches
+    record["bn254_launches"] = {k: v for k, v in kernels.counts().items()
+                                if v}
+    if launches["ec_add[pallas]"] > PASTA_EC_ADD_MAX:
+        faults.append(f"ec_add[pallas] launched {launches['ec_add[pallas]']}"
+                      f" times (at most {PASTA_EC_ADD_MAX}): a ladder is back")
+    if record["bn254_launches"]:
+        faults.append(f"BN254 kernels launched on the pallas path: "
+                      f"{record['bn254_launches']}")
+    # the timed pass: the same calls again, warm, with no recorder (after
+    # the counts are read)
+    for k, st in states.items():
+        times, com, proof, ok = run(st)
+        record[f"K{k}"].update(times)
+        if not ok or (com, proof) != st["out"]:
+            faults.append(f"K={k}: the second opening differs or fails")
+        log(f"pasta K={k} warm: commit {times['commit_s']:.4f} s, open "
+            f"{times['open_s']:.4f} s, verify {times['verify_s']:.4f} s")
+    del states
+    # the launch floor: an empty kernel (a spin of 0 cycles) and no kernel
+    # at all between the two events, timed as every kernel is
+    record["empty_kernel_ms"] = time_ms(lambda: torch.cuda._sleep(0), 7)
+    record["no_kernel_ms"] = time_ms(lambda: None, 7)
+    log(f"pasta: launch floor {record['empty_kernel_ms']:.4f} ms (an empty "
+        f"kernel), {record['no_kernel_ms']:.4f} ms (none)")
     # submod on the pallas scalar field is built by the dispatch but no
     # Pasta path subtracts scalars: it is held to its twin at the phase's
     # widest scalar-field shape, apart from the path's kernels
@@ -1947,7 +2032,7 @@ def pasta_phase(imad_rate):
     if idle:
         faults.append(f"Pasta instantiations not launched: {idle}")
     wrappers = {name: fn for name, (fn, _) in kernels.PASTA_WRAPPERS.items()}
-    plains = {name: getattr(kec if name.startswith("ec_add") else kmul,
+    plains = {name: getattr(kec if name.endswith("[pallas]") else kmul,
                             name.split("[")[0] + "_plain")
               for name in wrappers}
     widest = max((key for (nm, key) in rec.calls
@@ -1958,6 +2043,21 @@ def pasta_phase(imad_rate):
     rec.n[(off_path, widest)] = 0
     held = hold_to_twins(rec, wrappers, plains, imad_rate, faults)
     record["twin_shapes"] = {k: len(v) for k, v in held.items()}
+    # each pallas instance of kernels 8–12 beside its BN254 instance on the
+    # same inputs at its largest shape (limbs that BN254's field need not
+    # hold canonically: only the time is read)
+    for name, recs in held.items():
+        if not name.endswith("[pallas]"):
+            continue
+        top, (args, kw) = max(recs, key=lambda ea: ea[0]["bound_ms"])
+        at = CURVE_ARG[name.split("[")[0]]
+        if len(args) > at:
+            args = args[:at] + (BN254,) + args[at + 1:]
+        else:
+            kw = {**kw, "curve": BN254}
+        top["bn254_ms"] = time_ms(lambda: wrappers[name](*args, **kw), 7)
+        log(f"{name} {top['shape']}: {top['ms']:.4f} ms, the BN254 "
+            f"instance {top['bn254_ms']:.4f} ms on the same inputs")
     return record, faults, held
 
 
@@ -2007,8 +2107,10 @@ def main(argv) -> int:
             if m:
                 fn = re.search(r"([a-z0-9_]+_kernel)", m.group(1))
                 mod = re.search(r"2(F[rq])E", m.group(1))
+                tag = pasta_tag(m.group(1))
                 log(f"ptxas {src}: {fn.group(1) if fn else m.group(1)}"
-                    + (f"<{mod.group(1)}>" if mod else ""))
+                    + (f"<{mod.group(1)}>" if mod else "")
+                    + (f"[{tag}]" if tag else ""))
             elif "registers" in line or "spill" in line:
                 log(f"ptxas {src}: {line.strip()}")
     ptxas = ptxas_table(built.ptxas)
@@ -2244,7 +2346,7 @@ def main(argv) -> int:
         line.append({"name": name, "route": "cuda", "source": SOURCES[base],
                      "replaces": REPLACES[base],
                      "launches": pasta["launches"][name], **top,
-                     "library_ms": None, "ptxas": ptxas.get(base),
+                     "library_ms": None, "ptxas": ptxas.get(name),
                      "other_shapes": [e for e, _ in recs if e is not top]})
     print(json.dumps({"card": card, "phases_s": phases,
                       "profile": profile}), flush=True)

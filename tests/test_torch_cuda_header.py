@@ -2,7 +2,7 @@
 for the host with g++, against the plain twins and Python ints. The header
 is __host__ __device__, so this checks the Montgomery multiply, add, sub
 (on BN254's two fields and the two Pasta fields, whose moduli are above
-2^254) and the complete EC addition (on BN254 and pallas) and doubling
+2^254) and the complete EC addition and doubling (on BN254 and pallas)
 that every kernel runs, without
 a card (the host build takes the header's portable arithmetic; the card
 takes its PTX carry chains, held to the same twins by
@@ -55,6 +55,14 @@ void pt_add_pallas(const uint32_t* p, const uint32_t* q, uint32_t* o,
     zk::load_pt(p + 24 * i, 1, 0, x);
     zk::load_pt(q + 24 * i, 1, 0, y);
     zk::ec_add<zk::Pallas>(x, y, s);
+    zk::store_pt(o + 24 * i, 1, 0, s);
+  }
+}
+void pt_dbl_pallas(const uint32_t* p, uint32_t* o, long long n) {
+  for (long long i = 0; i < n; ++i) {
+    zk::Pt x, s;
+    zk::load_pt(p + 24 * i, 1, 0, x);
+    zk::ec_dbl<zk::Pallas>(x, s);
     zk::store_pt(o + 24 * i, 1, 0, s);
   }
 }
@@ -121,6 +129,7 @@ def lib(tmp_path_factory):
     lib.pt_add.argtypes = [P, P, P, ctypes.c_longlong]
     lib.pt_add_pallas.argtypes = [P, P, P, ctypes.c_longlong]
     lib.identity_pallas.argtypes = [P]
+    lib.pt_dbl_pallas.argtypes = [P, P, ctypes.c_longlong]
     lib.pt_dbl.argtypes = [P, P, ctypes.c_longlong]
     lib.identity.argtypes = [P]
     lib.bfly.argtypes = [ctypes.c_int, P, P, P, ctypes.c_longlong]
@@ -236,28 +245,33 @@ def test_butterfly_and_one(lib, F):
     np.testing.assert_array_equal(one, F.ONE)
 
 
-def test_ec_dbl(lib):
-    """ec_dbl equals its twin dbl_limbs limb for limb on projective points
-    (Z ≠ 1) and the identity, maps the identity to exactly (0 : 1 : 0), and
-    gives the same affine point as ec_add(P, P) and the oracle's P + P.
-    BN254's G1 has prime order, so no point of it has Y = 0."""
-    G, GEN = pycurve.G1, pycurve.G1_GEN
+@pytest.mark.parametrize("name", ["bn254", "pasta"])
+def test_ec_dbl(lib, name):
+    """ec_dbl on each curve (b3 = 9 on BN254, 15 on pallas) equals its
+    twin dbl_limbs limb for limb on projective points (Z ≠ 1) and the
+    identity, maps the identity to exactly (0 : 1 : 0), and gives the same
+    affine point as ec_add(P, P) and the oracle's P + P. Both groups have
+    prime order, so no point of them has Y = 0."""
+    C, G, GEN, dbl, add = {
+        "bn254": (curve.BN254, pycurve.G1, pycurve.G1_GEN, lib.pt_dbl,
+                  lib.pt_add),
+        "pasta": (curve.PASTA, pycurve.PASTA_G1, pycurve.PASTA_G1_GEN,
+                  lib.pt_dbl_pallas, lib.pt_add_pallas)}[name]
     a = [G.mul(GEN, int(k)) for k in rng.integers(1, 1 << 40, 48)]
     b = [G.mul(GEN, int(k)) for k in rng.integers(1, 1 << 40, 48)]
-    proj = curve.add(curve.from_affine_ints(a), curve.from_affine_ints(b))
-    P = torch.cat([proj, curve.from_affine_ints([None, GEN])])
+    proj = C.add(C.from_affine_ints(a), C.from_affine_ints(b))
+    P = torch.cat([proj, C.from_affine_ints([None, GEN])])
     pts = [G.add(x, y) for x, y in zip(a, b)] + [None, GEN]
     n = P.shape[0]
     pw = P.numpy().view(np.uint32)
-    got = _run(lambda x, o: lib.pt_dbl(x, o, n), pw, out_shape=(n, 3, 8))
-    twin = curve.dbl_limbs(P.to(torch.int64) & 0xFFFFFFFF)
+    got = _run(lambda x, o: dbl(x, o, n), pw, out_shape=(n, 3, 8))
+    twin = curve.dbl_limbs(P.to(torch.int64) & 0xFFFFFFFF, C)
     np.testing.assert_array_equal(got, twin.to(torch.int32).numpy()
                                   .view(np.uint32))
-    np.testing.assert_array_equal(got[-2], curve.identity().numpy()
+    np.testing.assert_array_equal(got[-2], C.identity().numpy()
                                   .view(np.uint32))
-    added = _run(lambda x, y, o: lib.pt_add(x, y, o, n), pw, pw,
+    added = _run(lambda x, y, o: add(x, y, o, n), pw, pw,
                  out_shape=(n, 3, 8))
     want = [G.add(x, x) for x in pts]
-    assert curve.to_affine_ints(torch.from_numpy(got.view(np.int32))) == want
-    assert curve.to_affine_ints(torch.from_numpy(added.view(np.int32))) \
-        == want
+    assert C.to_affine_ints(torch.from_numpy(got.view(np.int32))) == want
+    assert C.to_affine_ints(torch.from_numpy(added.view(np.int32))) == want

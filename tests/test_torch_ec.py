@@ -5,7 +5,10 @@ The scans are compared as affine points: the JAX paths associate additions
 differently, which changes projective representatives but not points. The
 doubling and scale_reduce's Horner follow the JAX package's own sequence
 (RCB16 Alg. 9 and 7 over canonical field values), so those are compared
-limb for limb, projective triple against projective triple."""
+limb for limb, projective triple against projective triple. The twins of
+kernels 9–12 on the Pasta pallas curve (the IPA backend's MSM) are held
+to the host oracle PASTA_G1, and the doubling on pallas to JAX
+``PASTA.double``."""
 
 import jax
 import jax.numpy as jnp
@@ -183,18 +186,29 @@ def _to_jax(pts):
     return jnp.asarray(to_limbs16(pts))
 
 
-def test_dbl_limbs_equals_jax_double():
-    """The twin of zk::ec_dbl against JAX `double`, limb for limb, on
-    projective points (Z ≠ 1, from an add) and the identity."""
-    a, b = _points(40), _points(40)
-    proj = curve.add(curve.from_affine_ints(a), curve.from_affine_ints(b))
-    P = torch.cat([proj, curve.from_affine_ints([None, GEN])])
-    got = curve.dbl_limbs(P.to(torch.int64) & 0xFFFFFFFF).to(torch.int32)
-    want = np.asarray(jcurve.double(_to_jax(P)))
+# curve -> (the port's curve, the host group and generator, JAX's double)
+CURVES = {"bn254": (curve.BN254, G, GEN, jcurve.double),
+          "pasta": (curve.PASTA, pycurve.PASTA_G1, pycurve.PASTA_G1_GEN,
+                    jcurve.PASTA.double)}
+
+
+@pytest.mark.parametrize("name", list(CURVES))
+def test_dbl_limbs_equals_jax_double(name):
+    """The twin of zk::ec_dbl against JAX `double` on the same curve, limb
+    for limb, on projective points (Z ≠ 1, from an add) and the
+    identity."""
+    C, H, gen, jdouble = CURVES[name]
+    r = np.random.default_rng(47)
+    a = [H.mul(gen, int(k)) for k in r.integers(1, 1 << 30, 40)]
+    b = [H.mul(gen, int(k)) for k in r.integers(1, 1 << 30, 40)]
+    proj = C.add(C.from_affine_ints(a), C.from_affine_ints(b))
+    P = torch.cat([proj, C.from_affine_ints([None, gen])])
+    got = curve.dbl_limbs(P.to(torch.int64) & 0xFFFFFFFF, C).to(torch.int32)
+    want = np.asarray(jdouble(_to_jax(P)))
     np.testing.assert_array_equal(to_limbs16(got), want)
-    assert torch.equal(got[-2], curve.identity())
-    assert curve.to_affine_ints(got) == [G.add(p, p) for p in (
-        [G.add(x, y) for x, y in zip(a, b)] + [None, GEN])]
+    assert torch.equal(got[-2], C.identity())
+    assert C.to_affine_ints(got) == [H.add(p, p) for p in (
+        [H.add(x, y) for x, y in zip(a, b)] + [None, gen])]
 
 
 @pytest.mark.parametrize("c,nlive", [(13, 5), (8, 3), (4, 64), (13, 20)])
@@ -214,3 +228,75 @@ def test_scale_reduce(c, nlive):
     jv = _jax_horner(jnp.asarray(jcurve.from_affine_ints(pts)), c)
     np.testing.assert_array_equal(
         to_limbs16(curve.unpack(out[:, :, None])[0, 0]), np.asarray(jv))
+
+
+# -- kernels 9–12 on the Pasta pallas curve -----------------------------------
+
+PG, PGEN = pycurve.PASTA_G1, pycurve.PASTA_G1_GEN
+NP = 256
+
+
+@pytest.fixture(scope="module")
+def pallas_data():
+    """NP pallas points with identities, a second row with P + P and
+    P + (−P) against the first, and sparse segment starts with a stretch
+    of none."""
+    r = np.random.default_rng(89)
+    a = [PG.mul(PGEN, int(k)) for k in r.integers(1, 1 << 30, NP)]
+    a[::29] = [None] * len(a[::29])
+    b = [PG.mul(PGEN, int(k)) for k in r.integers(1, 1 << 30, NP)]
+    b[5], b[6] = a[5], PG.neg(a[6])
+    flags = r.integers(0, 5, NP) == 0
+    flags[100:180] = False
+    return a, b, flags
+
+
+def _pallas_packed(pts):
+    return curve.pack(curve.PASTA.from_affine_ints(pts))
+
+
+def _pallas_affine(packed):
+    return curve.PASTA.to_affine_ints(curve.unpack(packed))
+
+
+def _pallas_scan_oracle(pts, starts):
+    out, acc = [], None
+    for p, s in zip(pts, starts):
+        acc = p if s else PG.add(acc, p)
+        out.append(acc)
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["seg_step", "chain_scan_local",
+                                    "seg_scan_tiles", "scale_reduce"])
+def test_pallas_twins_match_host_oracle(pallas_data, kernel):
+    """The twin of each of kernels 9–12 on pallas (b3 = 15) against the
+    host group PASTA_G1 as affine points."""
+    a, b, flags = pallas_data
+    C = curve.PASTA
+    f = torch.from_numpy(flags)[None]
+    if kernel == "seg_step":
+        got = _pallas_affine(ec.seg_step(_pallas_packed(a), _pallas_packed(b),
+                                         f, curve=C))
+        assert got == [x if k else PG.add(x, y)
+                       for x, y, k in zip(a, b, flags)]
+    elif kernel == "chain_scan_local":
+        W = 64
+        got = _pallas_affine(ec.chain_scan_local(_pallas_packed(a), f, W,
+                                                 curve=C))
+        for lane in range(W):
+            idx = list(range(lane, NP, W))
+            starts = [True] + [bool(flags[i]) for i in idx[1:]]
+            assert [got[i] for i in idx] == _pallas_scan_oracle(
+                [a[i] for i in idx], starts)
+    elif kernel == "seg_scan_tiles":
+        got = _pallas_affine(ec.seg_scan_tiles(_pallas_packed(a), f,
+                                               curve=C))
+        assert got == _pallas_scan_oracle(a, [True] + list(flags[1:]))
+    else:
+        c, ks = 4, [3, 0, 1 << 40, 7, (1 << 254) + 5]
+        ws = _pallas_packed([PG.mul(PGEN, k) if k else None for k in ks])
+        out = ec.scale_reduce(ws, c, curve=C)
+        got = C.to_affine_ints(curve.unpack(out[:, :, None]))
+        assert got == [PG.mul(PGEN, sum(k << (c * w)
+                                        for w, k in enumerate(ks)))]

@@ -3,9 +3,11 @@ following ``tests/test_ipa_pasta.py`` (K = 3): the pallas group operations
 on the plain path against the host oracle, the generators on the curve
 and equal to the JAX package's, and commit, open and verify with a wrong
 value and a tampered byte rejected, the opening's bytes equal to the JAX
-package's (pinned as sha256; the `heavy` test recomputes the pin); and
-the ``"pasta"`` transcript mode: its point codec round trip, its scalars
-mod VESTA_BASE, and malformed encodings raising ValueError."""
+package's (pinned as sha256; the `heavy` test recomputes the pin), its
+MSMs on the Pippenger of ops/msm.py (kernels 9–12 on pallas) and never on
+the double-and-add, and the generators' square roots made at once on the
+device; and the ``"pasta"`` transcript mode: its point codec round trip,
+its scalars mod VESTA_BASE, and malformed encodings raising ValueError."""
 
 import hashlib
 import random
@@ -16,7 +18,7 @@ import torch
 
 from zkodst_tpu.proof import ipa as jipa
 from zkodst_tpu.proof import transcript as jtranscript
-from zkodst_tpu_torch.ops import curve, pycurve
+from zkodst_tpu_torch.ops import curve, msm, pycurve
 from zkodst_tpu_torch.ops.field import PASTA_FR, to_limbs16
 from zkodst_tpu_torch.ops.pyfield import PALLAS_BASE, VESTA_BASE
 from zkodst_tpu_torch.proof import ipa
@@ -125,6 +127,40 @@ def test_pasta_ipa_commit_open_verify(params, opening):
     bad[1] ^= 1
     assert ipa.verify_poly(params, com, x, v,
                            Blake2bRead(bytes(bad), "pasta"), n=n) is False
+
+
+def test_pasta_msms_are_pippenger(params, monkeypatch):
+    """Commit and verify on pallas reach msm_many with the pallas curve,
+    and no call reaches Curve.scalar_mul (the reference's ladder)."""
+    seen = []
+    real = msm.msm_many
+
+    def rec(points, scalars, c=8, scalar_bits=None, curve=curve.BN254):
+        seen.append((curve.name, tuple(scalars.shape)))
+        return real(points, scalars, c, scalar_bits, curve)
+
+    def ladder(*_):
+        raise AssertionError("a pallas MSM reached Curve.scalar_mul")
+
+    monkeypatch.setattr(msm, "msm_many", rec)
+    monkeypatch.setattr(curve.Curve, "scalar_mul", ladder)
+    coeffs, blind, x, v = _inputs()
+    com = ipa.commit(params, PASTA_FR.from_ints(coeffs), blind)
+    assert seen == [("pallas", (1, 1 << K, 8))]
+    assert G.is_on_curve(com)
+
+
+def test_pasta_sqrt_on_device_matches_host():
+    """The generators' Tonelli–Shanks over all candidates at once: a root
+    of every square (0 included), none taken for a non-square."""
+    cfg = ipa._CFGS["pasta"]
+    r = random.Random(5)
+    vals = [r.randrange(PALLAS_BASE) for _ in range(24)] + [0, 1, 4, 13]
+    roots = cfg.dev.F.to_ints(ipa._sqrt(cfg, cfg.dev.F.from_ints(vals)))
+    for a, y in zip(vals, roots):
+        host = cfg.base_pf.sqrt(a)
+        assert (int(y) ** 2 % PALLAS_BASE == a) == (host is not None)
+    assert sum(cfg.base_pf.sqrt(a) is not None for a in vals) >= 10
 
 
 def test_pasta_codec_roundtrip_equals_jax():

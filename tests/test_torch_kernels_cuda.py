@@ -339,6 +339,98 @@ def test_pasta_ec_add(dev):
     assert kernels.counts()["ec_add"] == 0
 
 
+@pytest.fixture(scope="module")
+def pallas_pts():
+    """pallas points with Z ≠ 1 and identities, a second row with P + P and
+    P + (−P) against the first, and sparse starts with a stretch of none."""
+    G, GEN = pycurve.PASTA_G1, pycurve.PASTA_G1_GEN
+    C = curve.PASTA
+    r = np.random.default_rng(84)
+    a = [G.mul(GEN, int(k)) for k in r.integers(1, 1 << 30, 1024)]
+    a[::41] = [None] * len(a[::41])
+    b = [G.mul(GEN, int(k)) for k in r.integers(1, 1 << 30, 1024)]
+    b[3], b[4] = a[3], G.neg(a[4])
+    flags = r.integers(0, 6, 1024) == 0
+    flags[300:700] = False
+    P = curve.pack(C.add(C.from_affine_ints(a),
+                         C.from_affine_ints([GEN] * len(a))))
+    Q = curve.pack(C.from_affine_ints(b))
+    return P, Q, torch.from_numpy(flags)[None]
+
+
+@pytest.mark.parametrize("kernel", ["seg_step", "chain_scan_local",
+                                    "seg_scan_tiles", "scale_reduce"])
+def test_pallas_scan_kernels(dev, pallas_pts, kernel):
+    """Kernels 9–12 on pallas against their twins limb for limb (the
+    tile scan at the path's widest row, 2048 lanes, too); each launch is
+    counted as its Pasta instantiation, none as BN254's."""
+    from zkodst_tpu_torch import kernels
+
+    P, Q, f = pallas_pts
+    C = curve.PASTA
+    kernels.reset_counts()
+    if kernel == "seg_step":
+        _same(ec.seg_step(P.to(dev), Q.to(dev), f.to(dev), curve=C),
+              ec.seg_step_plain(P, Q, f, C))
+    elif kernel == "chain_scan_local":
+        _same(ec.chain_scan_local(P.to(dev), f.to(dev), 128, curve=C),
+              ec.chain_scan_local_plain(P, f, 128, C))
+    elif kernel == "seg_scan_tiles":
+        for Pn, fn in ((P[:, :, :256].contiguous(), f[:, :256]),
+                       _chain_aggregates(P)):
+            _same(ec.seg_scan_tiles(Pn.to(dev), fn.to(dev), curve=C),
+                  ec.seg_scan_tiles_plain(Pn, fn, C))
+    else:
+        ws = P[0, :, :4 * 20].reshape(24, 4, 20).transpose(0, 1).contiguous()
+        _same(ec.scale_reduce(ws.to(dev), 13, curve=C),
+              ec.scale_reduce_plain(ws, 13, C))
+    pasta = kernels.pasta_counts()
+    assert pasta[f"{kernel}[pallas]"] == (2 if kernel == "seg_scan_tiles"
+                                          else 1)
+    assert kernels.counts()[kernel] == 0
+
+
+def test_pallas_msm_on_the_card(dev):
+    """msm_many on pallas (255-bit scalars, p − 1 and 2^254 among them) on
+    the card against the same call on the twins, limb for limb, and
+    against the host sum."""
+    from zkodst_tpu_torch import kernels
+    from zkodst_tpu_torch.ops import msm
+    from zkodst_tpu_torch.ops.field import ints_to_limbs
+    from zkodst_tpu_torch.ops.pyfield import VESTA_BASE
+
+    G, GEN = pycurve.PASTA_G1, pycurve.PASTA_G1_GEN
+    C = curve.PASTA
+    r = np.random.default_rng(85)
+    pts = [G.mul(GEN, int(k)) for k in r.integers(1, 1 << 30, 300)]
+    rows = [[int.from_bytes(r.bytes(32), "little") % VESTA_BASE
+             for _ in pts], [[0, 1, 1 << 254, VESTA_BASE - 1][i % 4]
+                             for i in range(len(pts))]]
+    P = C.from_affine_ints(pts)
+    S = PASTA_FR.const(ints_to_limbs(rows))
+    kernels.reset_counts()
+    got = msm.msm_many(P.to(dev), S.to(dev), 13, curve=C)
+    launched = kernels.pasta_counts()
+    assert all(launched[f"{k}[pallas]"] for k in (
+        "seg_step", "chain_scan_local", "seg_scan_tiles", "scale_reduce"))
+    assert not any(kernels.counts().values())
+    _same(got, msm.msm_many(P, S, 13, curve=C))
+    want = [None, None]
+    for b, row in enumerate(rows):
+        for p, k in zip(pts, row):
+            want[b] = G.add(want[b], G.mul(p, k))
+    assert C.to_affine_ints(got.cpu()) == want
+
+
+def test_ec_kernels_refuse_an_unknown_curve(dev):
+    from zkodst_tpu_torch.kernels.build import call
+
+    x = torch.zeros((1, 24, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        call("ec", "zk_seg_step", x.data_ptr(), x.data_ptr(), x.data_ptr(),
+             x.data_ptr(), 1, 4, 2)
+
+
 def test_bn254_kernels_refuse_pasta_fields(dev):
     x = torch.zeros((4096, 8), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="BN254"):

@@ -1,7 +1,9 @@
 """The port's Pippenger MSM (plain path) against a naive Python-curve sum,
-and its batched Lagrange commitment with the 64-bit body / full-width tail
-split against the same oracle on the k=6 SRS fixture. The comparisons
-with the JAX package are in test_torch_msm_jax.py."""
+on BN254 and on the Pasta pallas curve (the IPA backend's MSMs: 255-bit
+scalars, padded and unpadded point counts), and its batched Lagrange
+commitment with the 64-bit body / full-width tail split against the same
+oracle on the k=6 SRS fixture. The comparisons with the JAX package are in
+test_torch_msm_jax.py."""
 
 import os
 
@@ -10,7 +12,8 @@ import pytest
 import torch
 
 from zkodst_tpu_torch.ops import curve, msm, pycurve
-from zkodst_tpu_torch.ops.field import FR, ints_to_limbs
+from zkodst_tpu_torch.ops.field import FR, PASTA_FR, ints_to_limbs
+from zkodst_tpu_torch.ops.pyfield import VESTA_BASE
 from zkodst_tpu_torch.proof import srs
 
 # several test workers share the host's cores: one intra-op thread each
@@ -77,3 +80,38 @@ def test_commit_lagrange_many_body_tail_split():
     assert got == [_naive(lag, col) for col in cols]
     full = srs.commit_lagrange_many(params, FR.from_ints(cols), c=13)
     assert full == got
+
+
+PG, PGEN = pycurve.PASTA_G1, pycurve.PASTA_G1_GEN
+# scalars the pallas MSM must read whole: 2^254 and p − 1 set bit 254,
+# which a 254-bit window split drops
+PALLAS_EDGES = [0, 1, 1 << 254, VESTA_BASE - 1]
+
+
+def pallas_inputs(n, seed):
+    """n pallas points (one the identity) and two rows of normal-form
+    scalars: random ones with the edges at their head, and the edges
+    cycling."""
+    r = np.random.default_rng(seed)
+    pts = [PG.mul(PGEN, int(k)) for k in r.integers(1, 1 << 30, n)]
+    pts[n // 2] = None
+    full = [int.from_bytes(r.bytes(32), "little") % VESTA_BASE
+            for _ in range(n)]
+    full[:4] = PALLAS_EDGES
+    edge = [PALLAS_EDGES[i % 4] for i in range(n)]
+    return pts, [full, edge]
+
+
+@pytest.mark.parametrize("n", [8, 100, 256])
+def test_pallas_msm_many_matches_naive(n):
+    """msm_many(curve=PASTA), B = 2, at N = 8, 100 (padded to 128) and 256,
+    equals the naive host sum; the default width reads bit 254."""
+    pts, rows = pallas_inputs(n, 67 + n)
+    C = curve.PASTA
+    got = msm.msm_many(C.from_affine_ints(pts),
+                       PASTA_FR.const(ints_to_limbs(rows)), c=13, curve=C)
+    want = [None] * 2
+    for b, row in enumerate(rows):
+        for p, s in zip(pts, row):
+            want[b] = PG.add(want[b], PG.mul(p, s))
+    assert C.to_affine_ints(got) == want

@@ -1,6 +1,12 @@
 // G1 kernels of the MSM, the SRS ladder and the IPA opening, on packed
-// points: BN254 throughout, and the complete addition also on the Pasta
-// pallas curve (the IPA backend's second curve).
+// points, each a template on the curve: BN254 G1 (zk::Bn254) and the Pasta
+// pallas curve (zk::Pallas, the IPA backend's second curve). Both have
+// 8-limb coordinates and a = 0; they differ in the modulus and in b3 (9 on
+// BN254, 15 on pallas: a chain of 4 or 5 modular additions), so a pallas
+// instance runs its BN254 instance's code with the other modulus and one
+// more addition for each b3 product. Every entry point takes `curve`
+// (0 BN254, 1 pallas); the Pasta IPA's MSMs run kernels 9–12 on pallas
+// through the same Pippenger as BN254's (ops/msm.py).
 //
 // A packed point tensor is (batch, 24, n) 32-bit words (see field.cuh), a
 // flag tensor (batch, n) bytes. Every kernel is built on zk::ec_add, the
@@ -69,6 +75,7 @@ ec_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
 
 // o = keep ? p : p + q. Applies a carry q to the elements whose segment
 // began before them (keep = 0).
+template <class C>
 __global__ void __launch_bounds__(kThreads)
 seg_step_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
                 const uint8_t* __restrict__ keep, uint32_t* __restrict__ o,
@@ -81,7 +88,7 @@ seg_step_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
   if (!keep[i]) {
     zk::Pt y, s;
     zk::load_pt(q + b * 24 * n, n, e, y);
-    zk::ec_add(x, y, s);
+    zk::ec_add<C>(x, y, s);
     x = s;
   }
   zk::store_pt(o + b * 24 * n, n, e, x);
@@ -92,6 +99,7 @@ seg_step_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
 // A chain's head starts a segment (cross-chain carries are the caller's).
 // Element k + 1 (24 words and its flag) is loaded before the add of
 // element k.
+template <class C>
 __global__ void __launch_bounds__(kThreads)
 chain_scan_kernel(const uint32_t* __restrict__ p, const uint8_t* __restrict__ f,
                   uint32_t* __restrict__ o, int64_t batch, int64_t n,
@@ -121,7 +129,7 @@ chain_scan_kernel(const uint32_t* __restrict__ p, const uint8_t* __restrict__ f,
     if (fx)
       acc = x;
     else
-      zk::ec_add(acc, x, acc);
+      zk::ec_add<C>(acc, x, acc);
     zk::store_pt(ob, n, e, acc);
   }
 }
@@ -176,11 +184,12 @@ chain_scan_kernel(const uint32_t* __restrict__ p, const uint8_t* __restrict__ f,
 constexpr int kTileMaxWarps = 8;        // warps a block (blockDim ≤ 256)
 constexpr uint32_t kHas = 1, kOk = 2;   // pair flags: has a start, exists
 
-// One layer of independent Fq products split over a group of L lanes that
-// hold the same operands: lane j computes products j, j + L, ... and every
-// lane reads the others back with shuffles inside its group, so a layer of
-// N products costs the latency of ceil(N / L) of them.
-template <int L>
+// One layer of independent products in the field M split over a group of
+// L lanes that hold the same operands: lane j computes products j, j + L,
+// ... and every lane reads the others back with shuffles inside its
+// group, so a layer of N products costs the latency of ceil(N / L) of
+// them.
+template <int L, class M>
 struct SplitLayer {
   int j;           // this lane's place in its group
   unsigned mask;   // the group's lanes
@@ -207,7 +216,7 @@ struct SplitLayer {
           }
         }
       }
-      zk::mont_mul<zk::Fq>(x, y, t);
+      zk::mont_mul<M>(x, y, t);
 #pragma unroll
       for (int m = 0; m < L; ++m) {
         if (k + m < N) {
@@ -225,12 +234,12 @@ struct Pair {
   uint32_t fl;
 };
 
-// b <- a ∘ b
-template <class Layer>
+// b <- a ∘ b on curve C
+template <class C, class Layer>
 __device__ __forceinline__ void combine(const Layer& mul, const Pair& a,
                                         Pair& b) {
   if (!(a.fl & kOk) || !(b.fl & kOk)) return;
-  if (!(b.fl & kHas)) zk::ec_add_by(mul, a.v, b.v, b.v);
+  if (!(b.fl & kHas)) zk::ec_add_by<Layer, C>(mul, a.v, b.v, b.v);
   b.fl |= a.fl;
 }
 
@@ -277,6 +286,7 @@ __device__ __forceinline__ void get_pair(const uint32_t* sv,
 // SCAN_LANES and its twin's warp width).
 constexpr int kScanLanes = 2;
 
+template <class C>
 __global__ void __launch_bounds__(kTileMaxWarps * 32)
 seg_scan_tiles_kernel(const uint32_t* __restrict__ p,
                       const uint8_t* __restrict__ f, uint32_t* __restrict__ o,
@@ -285,14 +295,15 @@ seg_scan_tiles_kernel(const uint32_t* __restrict__ p,
   __shared__ uint32_t tv[kTileMaxWarps * 24], tf[kTileMaxWarps];  // totals
   __shared__ uint32_t xv[kTileMaxWarps * 24], xf[kTileMaxWarps];  // prefixes
   cg::cluster_group cluster = cg::this_cluster();
-  const int C = (int)cluster.num_blocks();
+  const int nblk = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   const int nt = blockDim.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int j = lane % L, q = lane / L;        // place in group, group
-  const SplitLayer<L> mul{j, ((1u << L) - 1) << (lane - j)};
+  using Layer = SplitLayer<L, typename C::F>;
+  const Layer mul{j, ((1u << L) - 1) << (lane - j)};
   const int bw = nt >> 5;                      // warps a block
-  const int nwarps = C * bw;                   // warps of the row (≤ G)
-  const int64_t b = blockIdx.x / C;
+  const int nwarps = nblk * bw;                // warps of the row (≤ G)
+  const int64_t b = blockIdx.x / nblk;
   const uint32_t* pb = p + b * 24 * n;
   const uint8_t* fb = f + b * n;
   uint32_t* ob = o + b * 24 * n;
@@ -318,14 +329,14 @@ seg_scan_tiles_kernel(const uint32_t* __restrict__ p,
     if (e == e0 || st)
       mine.v = x;
     else
-      zk::ec_add_by(mul, mine.v, x, mine.v);
+      zk::ec_add_by<Layer, C>(mul, mine.v, x, mine.v);
     mine.fl |= kOk | (st ? kHas : 0u);
   }
   // 2. inclusive scan of the warp's G pairs
 #pragma unroll 1
   for (int d = 1; d < G; d <<= 1) {
     const Pair a = shfl_pair(mine, d * L, true);
-    if (q >= d) combine(mul, a, mine);
+    if (q >= d) combine<C>(mul, a, mine);
   }
   Pair acc = shfl_pair(mine, L, true);         // the pair of the thread
   if (q == 0) acc.fl = 0;                      // before
@@ -342,7 +353,7 @@ seg_scan_tiles_kernel(const uint32_t* __restrict__ p,
 #pragma unroll 1
     for (int d = 1; d < nwarps; d <<= 1) {
       const Pair a = shfl_pair(w, d * L, true);
-      if (q >= d) combine(mul, a, w);
+      if (q >= d) combine<C>(mul, a, w);
     }
     const int first = rank * bw;               // this block's first warp
     const int src = first + q - 1;
@@ -364,7 +375,7 @@ seg_scan_tiles_kernel(const uint32_t* __restrict__ p,
   if (!(acc.fl & kOk))
     acc = wp;
   else
-    combine(mul, wp, acc);
+    combine<C>(mul, wp, acc);
   if (e0 < e1) zk::load_pt(pb, n, e0, next);
   for (int64_t e = e0; e < e1; ++e) {
     x = next;
@@ -374,17 +385,19 @@ seg_scan_tiles_kernel(const uint32_t* __restrict__ p,
       acc.v = x;
       acc.fl = kOk;
     } else {
-      zk::ec_add_by(mul, acc.v, x, acc.v);
+      zk::ec_add_by<Layer, C>(mul, acc.v, x, acc.v);
     }
     if (j == 0) zk::store_pt(ob, n, e, acc.v);
   }
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
-// One layer of independent Fq products across the lanes of a warp: lane j
-// (of each group of 8) computes product j (lanes past the layer's width
-// repeat product 0), and every lane reads all of the layer's products back
-// with shuffles, so a layer costs the latency of one product.
+// One layer of independent products in the field M across the lanes of a
+// warp: lane j (of each group of 8) computes product j (lanes past the
+// layer's width repeat product 0), and every lane reads all of the layer's
+// products back with shuffles, so a layer costs the latency of one
+// product.
+template <class M>
 struct WarpLayer {
   int j;
 
@@ -406,7 +419,7 @@ struct WarpLayer {
         y[i] = j == k ? b[k][i] : y[i];
       }
     }
-    zk::mont_mul<zk::Fq>(x, y, t);
+    zk::mont_mul<M>(x, y, t);
 #pragma unroll
     for (int k = 0; k < N; ++k) {
 #pragma unroll
@@ -422,20 +435,22 @@ constexpr int kReduceRows = kThreads / 32;     // batch rows per block
 // from the top window down: c complete doublings (zk::ec_dbl's sequence),
 // then one complete add per window. One warp per batch row, its products
 // spread over the lanes; the sums and differences run in every lane.
+template <class C>
 __global__ void __launch_bounds__(kThreads)
 scale_reduce_kernel(const uint32_t* __restrict__ p, uint32_t* __restrict__ o,
                     int64_t batch, int64_t nlive, int c) {
   int64_t b = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x & 31;
   if (b >= batch) return;                // whole warps leave together
-  const WarpLayer mul{lane & 7};
+  using Layer = WarpLayer<typename C::F>;
+  const Layer mul{lane & 7};
   const uint32_t* pb = p + b * 24 * nlive;
   zk::Pt acc, x;
   zk::load_pt(pb, nlive, nlive - 1, acc);
   for (int64_t w = nlive - 2; w >= 0; --w) {
-    for (int j = 0; j < c; ++j) zk::ec_dbl_by(mul, acc, acc);
+    for (int j = 0; j < c; ++j) zk::ec_dbl_by<Layer, C>(mul, acc, acc);
     zk::load_pt(pb, nlive, w, x);
-    zk::ec_add_by(mul, acc, x, acc);
+    zk::ec_add_by<Layer, C>(mul, acc, x, acc);
   }
   if (lane == 0) zk::store_pt(o + b * 24, 1, 0, acc);
 }
@@ -444,29 +459,37 @@ unsigned grid(int64_t work, int threads) {
   return (unsigned)((work + threads - 1) / threads);
 }
 
+// The instance of a kernel on `curve` (0 BN254, 1 pallas), or nullptr.
+template <class Fn>
+Fn* on_curve(int curve, Fn* bn254, Fn* pallas) {
+  return curve == 0 ? bn254 : curve == 1 ? pallas : nullptr;
+}
+
 }  // namespace
 
-// Each entry point launches on `stream` and returns cudaGetLastError().
+// Each entry point launches on `stream` and returns cudaGetLastError();
+// an unknown curve is cudaErrorInvalidValue.
 // curve: 0 = BN254 G1, 1 = Pasta pallas.
 extern "C" int zk_ec_add(const void* p, const void* q, void* o,
                          long long batch, long long n, int curve,
                          void* stream) {
   if (batch * n == 0) return 0;
-  if (curve != 0 && curve != 1) return (int)cudaErrorInvalidValue;
-  void (*kernel)(const uint32_t*, const uint32_t*, uint32_t*, int64_t,
-                 int64_t) = curve == 0 ? ec_add_kernel<zk::Bn254>
-                                       : ec_add_kernel<zk::Pallas>;
+  const auto kernel = on_curve(curve, ec_add_kernel<zk::Bn254>,
+                               ec_add_kernel<zk::Pallas>);
+  if (!kernel) return (int)cudaErrorInvalidValue;
   kernel<<<grid(batch * n, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)o, batch, n);
   return (int)cudaGetLastError();
 }
 
 extern "C" int zk_seg_step(const void* p, const void* q, const void* keep,
-                           void* o, long long batch, long long n,
+                           void* o, long long batch, long long n, int curve,
                            void* stream) {
   if (batch * n == 0) return 0;
-  seg_step_kernel<<<grid(batch * n, kThreads), kThreads, 0,
-                    (cudaStream_t)stream>>>(
+  const auto kernel = on_curve(curve, seg_step_kernel<zk::Bn254>,
+                               seg_step_kernel<zk::Pallas>);
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  kernel<<<grid(batch * n, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)p, (const uint32_t*)q, (const uint8_t*)keep,
       (uint32_t*)o, batch, n);
   return (int)cudaGetLastError();
@@ -474,10 +497,12 @@ extern "C" int zk_seg_step(const void* p, const void* q, const void* keep,
 
 extern "C" int zk_chain_scan(const void* p, const void* f, void* o,
                              long long batch, long long n, long long W,
-                             void* stream) {
+                             int curve, void* stream) {
   if (batch * n == 0) return 0;
-  chain_scan_kernel<<<grid(batch * W, kThreads), kThreads, 0,
-                      (cudaStream_t)stream>>>(
+  const auto kernel = on_curve(curve, chain_scan_kernel<zk::Bn254>,
+                               chain_scan_kernel<zk::Pallas>);
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  kernel<<<grid(batch * W, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)p, (const uint8_t*)f, (uint32_t*)o, batch, n, W);
   return (int)cudaGetLastError();
 }
@@ -489,10 +514,13 @@ extern "C" int zk_chain_scan(const void* p, const void* f, void* o,
 // error, not run another way.
 extern "C" int zk_seg_scan_tiles(const void* p, const void* f, void* o,
                                  long long batch, long long n, int run,
-                                 int threads, int cluster, void* stream) {
+                                 int threads, int cluster, int curve,
+                                 void* stream) {
   if (batch * n == 0) return 0;
-  if (threads % 32 || threads > kTileMaxWarps * 32 || cluster < 1 ||
-      cluster * (threads / 32) > 32 / kScanLanes ||
+  const auto kernel = on_curve(curve, seg_scan_tiles_kernel<zk::Bn254>,
+                               seg_scan_tiles_kernel<zk::Pallas>);
+  if (!kernel || threads % 32 || threads > kTileMaxWarps * 32 ||
+      cluster < 1 || cluster * (threads / 32) > 32 / kScanLanes ||
       (long long)cluster * threads / kScanLanes * run < n)
     return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
@@ -507,17 +535,20 @@ extern "C" int zk_seg_scan_tiles(const void* p, const void* f, void* o,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, seg_scan_tiles_kernel, (const uint32_t*)p, (const uint8_t*)f,
-      (uint32_t*)o, (int64_t)n, run);
+      &cfg, kernel, (const uint32_t*)p, (const uint8_t*)f, (uint32_t*)o,
+      (int64_t)n, run);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 extern "C" int zk_scale_reduce(const void* p, void* o, long long batch,
-                               long long nlive, int c, void* stream) {
+                               long long nlive, int c, int curve,
+                               void* stream) {
   if (batch == 0) return 0;
-  scale_reduce_kernel<<<grid(batch, kReduceRows), kThreads, 0,
-                        (cudaStream_t)stream>>>(
+  const auto kernel = on_curve(curve, scale_reduce_kernel<zk::Bn254>,
+                               scale_reduce_kernel<zk::Pallas>);
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  kernel<<<grid(batch, kReduceRows), kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)p, (uint32_t*)o, batch, nlive, c);
   return (int)cudaGetLastError();
 }

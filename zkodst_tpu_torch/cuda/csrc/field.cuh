@@ -484,40 +484,42 @@ ZK_HD void ec_add_by(const Layer& mul, const Pt& p, const Pt& q, Pt& o) {
   add_mod<F>(m[4], m[5], o.z);
 }
 
-// Complete doubling, RCB16 Alg. 9 for a = 0 with b3 = 9, in the operation
-// sequence of zkodst_tpu/ops/curve.py:_double_impl: 6 multiplies and 2
-// squarings in three layers of independent products (4, 2, 2), where
-// ec_add(p, p) takes 12 in two layers of 6. Valid for every input; the
-// identity (0 : 1 : 0) maps to itself. o may alias p.
-template <class Layer>
+// Complete doubling, RCB16 Alg. 9 for a = 0 (b3 = 9 on BN254, 15 on
+// pallas), in the operation sequence of zkodst_tpu/ops/curve.py:
+// _double_impl: 6 multiplies and 2 squarings in three layers of
+// independent products (4, 2, 2), where ec_add(p, p) takes 12 in two
+// layers of 6. Valid for every input; the identity (0 : 1 : 0) maps to
+// itself. o may alias p.
+template <class Layer, class C = Bn254>
 ZK_HD void ec_dbl_by(const Layer& mul, const Pt& p, Pt& o) {
+  using F = typename C::F;
   uint32_t t0[8], t1[8], xy[8], t2[8];
   const uint32_t* const a1[4] = {p.y, p.y, p.x, p.z};
   const uint32_t* const b1[4] = {p.y, p.z, p.y, p.z};
   uint32_t* const r1[4] = {t0, t1, xy, t2};
   mul(a1, b1, r1);                  // y², yz, xy, z²
   uint32_t u[8], v[8], z3[8], b3z2[8];
-  add_mod<Fq>(t0, t0, u);
-  add_mod<Fq>(u, u, v);
-  add_mod<Fq>(v, v, z3);            // 8·y²
-  Bn254::mul_b3(t2, b3z2);          // b3·z²
+  add_mod<F>(t0, t0, u);
+  add_mod<F>(u, u, v);
+  add_mod<F>(v, v, z3);             // 8·y²
+  C::mul_b3(t2, b3z2);              // b3·z²
   uint32_t x3[8];
   const uint32_t* const a2[2] = {b3z2, t1};
   const uint32_t* const b2[2] = {z3, z3};
   uint32_t* const r2[2] = {x3, o.z};  // p is not read after the first layer
   mul(a2, b2, r2);
   uint32_t y3[8], w[8];
-  add_mod<Fq>(t0, b3z2, y3);
-  add_mod<Fq>(b3z2, b3z2, u);
-  add_mod<Fq>(u, b3z2, v);          // 3·b3·z²
-  sub_mod<Fq>(t0, v, w);
+  add_mod<F>(t0, b3z2, y3);
+  add_mod<F>(b3z2, b3z2, u);
+  add_mod<F>(u, b3z2, v);           // 3·b3·z²
+  sub_mod<F>(t0, v, w);
   uint32_t ya[8], xa[8];
   const uint32_t* const a3[2] = {w, w};
   const uint32_t* const b3[2] = {y3, xy};
   uint32_t* const r3[2] = {ya, xa};
   mul(a3, b3, r3);
-  add_mod<Fq>(ya, x3, o.y);
-  add_mod<Fq>(xa, xa, o.x);
+  add_mod<F>(ya, x3, o.y);
+  add_mod<F>(xa, xa, o.x);
 }
 
 template <class C = Bn254>
@@ -526,7 +528,11 @@ ZK_HD void ec_add(const Pt& p, const Pt& q, Pt& o) {
                                            q, o);
 }
 
-ZK_HD void ec_dbl(const Pt& p, Pt& o) { ec_dbl_by(SerialLayer<>(), p, o); }
+template <class C = Bn254>
+ZK_HD void ec_dbl(const Pt& p, Pt& o) {
+  ec_dbl_by<SerialLayer<typename C::F>, C>(SerialLayer<typename C::F>(), p,
+                                           o);
+}
 
 // Packed point tensors are (batch, 24, n) 32-bit words: row c·8 + i holds
 // limb i of coordinate c, so neighbouring threads read neighbouring words.

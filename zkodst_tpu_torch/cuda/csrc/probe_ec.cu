@@ -23,7 +23,7 @@ template <int L>
 __global__ void add_chain_kernel(const uint32_t* __restrict__ p,
                                  uint32_t* __restrict__ o, int steps) {
   const int lane = threadIdx.x, j = lane % L;
-  const SplitLayer<L> mul{j, ((1u << L) - 1) << (lane - j)};
+  const SplitLayer<L, zk::Fq> mul{j, ((1u << L) - 1) << (lane - j)};
   zk::Pt a, q;
   load_pt_words(p, a);
   load_pt_words(p + 24, q);

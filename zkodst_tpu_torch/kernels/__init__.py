@@ -7,8 +7,10 @@ the launch fails — there is no fallback from a kernel to its twin. Every
 accepted launch adds one to its entry point's count (``build.call``);
 :func:`reset_counts` and :func:`counts` read them per wrapper;
 :func:`copies` reads the binop operands copied whole since the reset.
-The Pasta instantiations of kernels 1–3 and 8 (the IPA backend's second
-curve) are counted apart (:data:`PASTA_WRAPPERS`, :func:`pasta_counts`),
+The Pasta instantiations of kernels 1–3 (on both Pasta fields) and 8–12
+(on the pallas curve: the addition and the Pippenger MSM's kernels; the
+IPA backend's second curve) are counted apart (:data:`PASTA_WRAPPERS`,
+:func:`pasta_counts`; ``mulmod[pasta_fp]``, ``seg_step[pallas]``, …),
 and so are kernels 13 and 14, the BLAKE2f witness (into the circuit's
 columns, or as a stream) and compression, which replace no Pallas kernel
 (:data:`BLAKE2F_WRAPPERS`, :func:`blake2f_counts`; they take int64 word
@@ -42,7 +44,11 @@ PASTA_WRAPPERS = {
     for tag in ("pasta_fp", "pasta_fr")
     for name, (fn, entry) in WRAPPERS.items()
     if name in ("mulmod", "addmod", "submod")}
-PASTA_WRAPPERS["ec_add[pallas]"] = (ec.ec_add, "zk_ec_add[pallas]")
+PASTA_WRAPPERS.update({
+    f"{name}[pallas]": (fn, f"{entry}[pallas]")
+    for name, (fn, entry) in WRAPPERS.items()
+    if name in ("ec_add", "seg_step", "seg_scan_tiles", "chain_scan_local",
+                "scale_reduce")})
 
 # kernels 13 (its two entry points: the circuit's columns, the stream) and
 # 14: the round loops the JAX package compiles with XLA

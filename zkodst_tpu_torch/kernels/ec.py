@@ -1,7 +1,9 @@
 """Kernels 8–12: G1 kernels on packed points (CUDA source
-``cuda/csrc/ec.cu``), each beside its plain PyTorch twin. All are BN254's;
-kernel 8 (``ec_add``) also runs on the Pasta pallas curve (its launches
-count as ``zk_ec_add[pallas]``).
+``cuda/csrc/ec.cu``), each beside its plain PyTorch twin. Each takes
+``curve``: BN254 (the default) or the Pasta pallas curve, whose launches
+count apart as ``zk_ec_add[pallas]``, ``zk_seg_step[pallas]``,
+``zk_chain_scan[pallas]``, ``zk_seg_scan_tiles[pallas]`` and
+``zk_scale_reduce[pallas]``.
 
 Packed points are ``(batch, 24, n)`` int32 (see :mod:`..ops.curve`), flags
 ``(batch, n)`` bool. The twins repeat the kernels' association of
@@ -70,6 +72,11 @@ def _flags(f: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return f.to(device=like.device, dtype=torch.uint8).contiguous()
 
 
+def _tag(curve: Curve):
+    """The launch count's tag of a curve's instance (None for BN254's)."""
+    return None if curve.kernel_id == 0 else curve.name
+
+
 # -- kernel 8: o = p + q ----------------------------------------------------
 
 def ec_add_plain(p, q, curve: Curve = BN254):
@@ -87,35 +94,35 @@ def ec_add(p: torch.Tensor, q: torch.Tensor,
     p, q = p.contiguous(), q.contiguous()
     out = torch.empty_like(p)
     call("ec", "zk_ec_add", p.data_ptr(), q.data_ptr(), out.data_ptr(),
-         p.shape[0], p.shape[2], curve.kernel_id,
-         tag=None if curve.kernel_id == 0 else curve.name)
+         p.shape[0], p.shape[2], curve.kernel_id, tag=_tag(curve))
     return out
 
 
 # -- kernel 9: o = keep ? p : p + q -------------------------------------------
 
-def seg_step_plain(p, q, keep):
+def seg_step_plain(p, q, keep, curve: Curve = BN254):
     pl = lanes64(p)
-    s = add_limbs(pl, lanes64(q))
+    s = add_limbs(pl, lanes64(q), curve)
     return _packed(torch.where(keep.bool()[..., None, None], pl, s))
 
 
-def seg_step(p: torch.Tensor, q: torch.Tensor,
-             keep: torch.Tensor) -> torch.Tensor:
+def seg_step(p: torch.Tensor, q: torch.Tensor, keep: torch.Tensor,
+             curve: Curve = BN254) -> torch.Tensor:
     _check_points(p, q)
     keep = _flags(keep, p)
     if p.device.type == "cpu":
-        return seg_step_plain(p, q, keep)
+        return seg_step_plain(p, q, keep, curve)
     p, q = p.contiguous(), q.contiguous()
     out = torch.empty_like(p)
     call("ec", "zk_seg_step", p.data_ptr(), q.data_ptr(), keep.data_ptr(),
-         out.data_ptr(), p.shape[0], p.shape[2])
+         out.data_ptr(), p.shape[0], p.shape[2], curve.kernel_id,
+         tag=_tag(curve))
     return out
 
 
 # -- kernel 11: per-chain segmented scan ----------------------------------------
 
-def chain_scan_local_plain(p, f, W: int):
+def chain_scan_local_plain(p, f, W: int, curve: Curve = BN254):
     B, _, n = p.shape
     S = n // W
     pts = lanes64(p).reshape(B, S, W, 3, 8)
@@ -125,12 +132,14 @@ def chain_scan_local_plain(p, f, W: int):
     out[:, 0] = acc
     for k in range(1, S):
         x = pts[:, k]
-        acc = torch.where(fl[:, k, :, None, None], x, add_limbs(acc, x))
+        acc = torch.where(fl[:, k, :, None, None], x,
+                          add_limbs(acc, x, curve))
         out[:, k] = acc
     return _packed(out.reshape(B, n, 3, 8))
 
 
-def chain_scan_local(p: torch.Tensor, f: torch.Tensor, W: int) -> torch.Tensor:
+def chain_scan_local(p: torch.Tensor, f: torch.Tensor, W: int,
+                     curve: Curve = BN254) -> torch.Tensor:
     """Segmented inclusive scan of each chain l = lanes l, W+l, 2W+l, ...;
     a chain's head starts a segment. f: segment-start flags."""
     _check_points(p)
@@ -138,11 +147,11 @@ def chain_scan_local(p: torch.Tensor, f: torch.Tensor, W: int) -> torch.Tensor:
     if p.shape[2] % W:
         raise ValueError(f"n={p.shape[2]} is not a multiple of W={W}")
     if p.device.type == "cpu":
-        return chain_scan_local_plain(p, f, W)
+        return chain_scan_local_plain(p, f, W, curve)
     p = p.contiguous()
     out = torch.empty_like(p)
     call("ec", "zk_chain_scan", p.data_ptr(), f.data_ptr(), out.data_ptr(),
-         p.shape[0], p.shape[2], W)
+         p.shape[0], p.shape[2], W, curve.kernel_id, tag=_tag(curve))
     return out
 
 
@@ -165,15 +174,15 @@ def _scan_layout(batch: int, n: int):
     return run, threads, -(-32 * warps // threads)
 
 
-def _where_add(a, b, need):
+def _where_add(a, b, need, curve: Curve):
     """b with ec_add(a, b) at the positions `need`: (…, 3, 8) points."""
     out = b.clone()
     if bool(need.any()):
-        out[need] = add_limbs(a[need], b[need])
+        out[need] = add_limbs(a[need], b[need], curve)
     return out
 
 
-def _combine(a, b):
+def _combine(a, b, curve: Curve):
     """b <- a ∘ b on pairs (points, has a start, exists), a earlier: a
     missing pair (past the row's end) neither changes one nor takes one;
     b with a start keeps its sum, else the sum is ec_add(a, b) — the
@@ -181,7 +190,7 @@ def _combine(a, b):
     av, ah, ao = a
     bv, bh, bo = b
     both = ao & bo
-    return _where_add(av, bv, both & ~bh), bh | (both & ah), bo
+    return _where_add(av, bv, both & ~bh, curve), bh | (both & ah), bo
 
 
 def _shift_up(pair, d: int):
@@ -194,7 +203,7 @@ def _shift_up(pair, d: int):
             torch.cat([torch.zeros_like(o[..., :d]), o[..., :m - d]], -1))
 
 
-def seg_scan_tiles_plain(p, f):
+def seg_scan_tiles_plain(p, f, curve: Curve = BN254):
     B, _, n = p.shape
     run, G = _scan_run(B, n), 32 // SCAN_LANES   # G threads a warp
     T = -(-n // (G * run)) * G                   # threads of the row
@@ -212,27 +221,28 @@ def seg_scan_tiles_plain(p, f):
     v, h, o = pts[:, :, 0], st[:, :, 0] & ek[:, :, 0], ek[:, :, 0].clone()
     for k in range(1, run):
         x, sk, e = pts[:, :, k], st[:, :, k], ek[:, :, k]
-        v = torch.where(sk[..., None, None], x, _where_add(v, x, e & ~sk))
+        v = torch.where(sk[..., None, None], x,
+                        _where_add(v, x, e & ~sk, curve))
         h = h | (sk & e)
     # 2. inclusive scan of each warp's G pairs
     pair = (v.reshape(B, nw, G, 3, 8), h.reshape(B, nw, G),
             o.reshape(B, nw, G))
     d = 1
     while d < G:
-        pair = _combine(_shift_up(pair, d), pair)
+        pair = _combine(_shift_up(pair, d), pair, curve)
         d <<= 1
     before = _shift_up(pair, 1)
     # 3. the warp totals, scanned; each warp takes the one before it
     w = tuple(x[:, :, G - 1] for x in pair)
     d = 1
     while d < nw:
-        w = _combine(_shift_up(w, d), w)
+        w = _combine(_shift_up(w, d), w, curve)
         d <<= 1
     wp = _shift_up(w, 1)
     wp = tuple(x[:, :, None].expand((B, nw, G) + x.shape[2:]) for x in wp)
     # 4. each thread's exclusive prefix (the warps' alone at lane 0), then
     #    its run again
-    ex = _combine(wp, before)
+    ex = _combine(wp, before, curve)
     lead = ~before[2]
     ex = (torch.where(lead[..., None, None], wp[0], ex[0]), ex[1],
           torch.where(lead, wp[2], ex[2]))
@@ -240,13 +250,15 @@ def seg_scan_tiles_plain(p, f):
     out = torch.empty_like(pts)
     for k in range(run):
         x, sk, e = pts[:, :, k], st[:, :, k] | ~ao, ek[:, :, k]
-        av = torch.where(sk[..., None, None], x, _where_add(av, x, e & ~sk))
+        av = torch.where(sk[..., None, None], x,
+                         _where_add(av, x, e & ~sk, curve))
         ao = ao | e
         out[:, :, k] = av
     return _packed(out.reshape(B, T * run, 3, 8)[:, :n])
 
 
-def seg_scan_tiles(p: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+def seg_scan_tiles(p: torch.Tensor, f: torch.Tensor,
+                   curve: Curve = BN254) -> torch.Tensor:
     """Segmented inclusive scan of each row (one cluster of blocks a row);
     a row's first lane starts a segment."""
     _check_points(p)
@@ -257,34 +269,36 @@ def seg_scan_tiles(p: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"a row of {n} lanes needs {cluster} blocks of "
                          f"{threads} threads, more than the scan spreads")
     if p.device.type == "cpu":
-        return seg_scan_tiles_plain(p, f)
+        return seg_scan_tiles_plain(p, f, curve)
     p = p.contiguous()
     out = torch.empty_like(p)
     call("ec", "zk_seg_scan_tiles", p.data_ptr(), f.data_ptr(),
-         out.data_ptr(), B, n, run, threads, cluster)
+         out.data_ptr(), B, n, run, threads, cluster, curve.kernel_id,
+         tag=_tag(curve))
     return out
 
 
 # -- kernel 12: Σ_w 2^(c·w)·P_w ---------------------------------------------------
 
-def scale_reduce_plain(ws, c: int):
+def scale_reduce_plain(ws, c: int, curve: Curve = BN254):
     pts = lanes64(ws)                    # (B, nlive, 3, 8)
     acc = pts[:, -1]
     for w in range(pts.shape[1] - 2, -1, -1):
         for _ in range(c):
-            acc = dbl_limbs(acc)
-        acc = add_limbs(acc, pts[:, w])
+            acc = dbl_limbs(acc, curve)
+        acc = add_limbs(acc, pts[:, w], curve)
     return _packed(acc[:, None])[:, :, 0]
 
 
-def scale_reduce(ws: torch.Tensor, c: int) -> torch.Tensor:
+def scale_reduce(ws: torch.Tensor, c: int,
+                 curve: Curve = BN254) -> torch.Tensor:
     """ws (batch, 24, nlive) window sums -> (batch, 24) Σ_w 2^(c·w)·ws_w."""
     _check_points(ws)
     if ws.device.type == "cpu":
-        return scale_reduce_plain(ws, c)
+        return scale_reduce_plain(ws, c, curve)
     ws = ws.contiguous()
     out = torch.empty(ws.shape[:2], dtype=torch.int32, device=ws.device)
     call("ec", "zk_scale_reduce", ws.data_ptr(), out.data_ptr(),
-         ws.shape[0], ws.shape[2], c)
+         ws.shape[0], ws.shape[2], c, curve.kernel_id, tag=_tag(curve))
     return out
 

@@ -7,7 +7,7 @@ int32 tensor of base-field Montgomery limbs (X : Y : Z); the identity is
 9 on BN254, 15 on pallas) in the operation order of
 ``zkodst_tpu/pallas/ec.py`` ``_ec_add_vecs``, so identity and doubling need
 no branches; doubling is RCB16 Alg. 9 in the order of ``_double_impl``
-(:func:`dbl_limbs`, BN254's alone).
+(:func:`dbl_limbs`).
 
 :class:`Curve` holds one curve's constants and its group operations
 (:data:`BN254`, :data:`PASTA`); the module-level functions are BN254's.
@@ -94,18 +94,21 @@ def add_limbs(p: torch.Tensor, q: torch.Tensor,
     return torch.stack([x3, y3, z3], dim=-2)
 
 
-def dbl_limbs(p: torch.Tensor) -> torch.Tensor:
-    """Complete doubling on int64 limb values, (..., 3, 8); the plain twin
-    of zk::ec_dbl in cuda/csrc/field.cuh, RCB16 Alg. 9 (a = 0, b3 = 9) in
-    the operation sequence of ``zkodst_tpu/ops/curve.py`` ``_double_impl``:
-    three layers of independent products (4, 2, 2), each one stacked call."""
-    mul, add, sub = FQ.mont_mul64, FQ.add64, FQ.sub64
+def dbl_limbs(p: torch.Tensor, curve: "Curve" = None) -> torch.Tensor:
+    """Complete doubling on int64 limb values, (..., 3, 8), on `curve`
+    (BN254 by default); the plain twin of zk::ec_dbl in
+    cuda/csrc/field.cuh, RCB16 Alg. 9 (a = 0, b3 = 3b: 9 on BN254, 15 on
+    pallas) in the operation sequence of ``zkodst_tpu/ops/curve.py``
+    ``_double_impl``: three layers of independent products (4, 2, 2), each
+    one stacked call."""
+    F, b3 = (curve or BN254).F, (curve or BN254).b3
+    mul, add, sub = F.mont_mul64, F.add64, F.sub64
     x, y, z = p[..., 0, :], p[..., 1, :], p[..., 2, :]
     t0, t1, xy, t2 = mul(torch.stack([y, y, x, z]), torch.stack([y, z, y, z]))
     z3 = add(t0, t0)
     z3 = add(z3, z3)
     z3 = add(z3, z3)                                # 8·y²
-    b3z2 = _mul_b3(FQ, 9, t2)                       # b3·z²
+    b3z2 = _mul_b3(F, b3, t2)                       # b3·z²
     x3, z3 = mul(torch.stack([b3z2, t1]), torch.stack([z3, z3]))
     y3 = add(t0, b3z2)
     w = sub(t0, add(add(b3z2, b3z2), b3z2))         # y² − 3·b3·z²
@@ -188,7 +191,9 @@ class Curve:
         """k_i·p_i for (N, 3, 8) points and (N, 8) NORMAL-form scalar
         limbs (the scalar field's width: 255 bits on pallas):
         double-and-add from the top bit down, all lanes at once (two
-        launches of kernel 8 a bit), as the reference's ``scalar_mul``."""
+        launches of kernel 8 a bit), as the reference's ``scalar_mul``.
+        The counterpart of the reference's function; no path of the port
+        calls it (MSMs go through :func:`..ops.msm.msm_many`)."""
         bits = self.SF.p.bit_length()
         limbs = k.to(torch.int64) & MASK32
         acc = self.identity(p.shape[:-2], p.device)

@@ -16,18 +16,27 @@ Sorting, gathers, ``searchsorted`` and ``cumsum`` are glue, as in the
 reference. Inputs of any N are padded with identity points and zero
 scalars to a multiple of 128 lanes (below that, to a power of two of at
 least 16), which adds only zero-digit rows (bucket 0 has weight 0).
+
+One path for both curves of the port: BN254 G1 (the default) and the
+Pasta pallas curve of the IPA backend, whose MSMs the reference runs as a
+per-lane double-and-add (``zkodst_tpu/proof/ipa.py`` ``_msm_mont_cfg``);
+an MSM is a group element, so the two give the same point. ``curve``
+picks the kernels' instance and the identity; the scalars' width
+defaults to the curve's scalar field (254 bits on BN254, 255 on pallas).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from ..kernels.ec import chain_scan_local, scale_reduce, seg_scan_tiles, \
     seg_step
-from . import curve
+from .curve import BN254, Curve, pack, unpack
 from .field import FR, MASK32
 
-SCALAR_BITS = 254
+SCALAR_BITS = 254           # BN254's scalar field
 _MAX_TILE = 2048            # widest flat scan run by one seg_scan_tiles
 
 
@@ -54,28 +63,29 @@ def _chain_w(n: int) -> int:
     return w
 
 
-def _idp(batch: int, n: int, device) -> torch.Tensor:
+def _idp(batch: int, n: int, device, curve: Curve) -> torch.Tensor:
     """(batch, 24, n) packed identity points."""
-    return curve.pack(curve.identity((n,), device)).expand(batch, 24, n)
+    return pack(curve.identity((n,), device)).expand(batch, 24, n)
 
 
-def _seg_scan_flat(pt: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+def _seg_scan_flat(pt: torch.Tensor, starts: torch.Tensor,
+                   curve: Curve) -> torch.Tensor:
     """Segmented inclusive scan of rows of ≤ 2048 lanes: one tile."""
     if pt.shape[2] > _MAX_TILE:
         raise ValueError(f"flat scan of {pt.shape[2]} > {_MAX_TILE} lanes")
-    return seg_scan_tiles(pt, starts)
+    return seg_scan_tiles(pt, starts, curve=curve)
 
 
-def _seg_scan_chains(pt, starts, W: int):
+def _seg_scan_chains(pt, starts, W: int, curve: Curve):
     """Chained segmented scan of chain-major points: returns the per-chain
     local scan and each chain's exclusive cross-chain carry (batch, 24, W)."""
     B, _, n = pt.shape
     S = n // W
-    local = chain_scan_local(pt, starts, W)
+    local = chain_scan_local(pt, starts, W, curve=curve)
     agg = local[:, :, (S - 1) * W:]
     aggf = starts.reshape(B, S, W).any(dim=1)          # chain has a start
-    incl = _seg_scan_flat(agg, aggf)
-    carry = torch.cat([_idp(B, 1, pt.device), incl[:, :, :-1]], dim=2)
+    incl = _seg_scan_flat(agg, aggf, curve)
+    carry = torch.cat([_idp(B, 1, pt.device, curve), incl[:, :, :-1]], dim=2)
     return local, carry
 
 
@@ -87,7 +97,7 @@ def _first_start(sw: torch.Tensor) -> torch.Tensor:
     return torch.where(sw.any(dim=-1), first, torch.full_like(first, S))
 
 
-def _seg_scan_chained_full(pt, starts, W: int):
+def _seg_scan_chained_full(pt, starts, W: int, curve: Curve):
     """Full segmented inclusive scan in natural order through the chained
     kernel; chain l covers the natural range [l·S, (l+1)·S)."""
     B, _, n = pt.shape
@@ -101,15 +111,16 @@ def _seg_scan_chained_full(pt, starts, W: int):
         return a.reshape(a.shape[:-1] + (S, W)).transpose(-1, -2) \
             .reshape(a.shape)
 
-    local, carry = _seg_scan_chains(cm(pt).contiguous(), cm(starts), W)
+    local, carry = _seg_scan_chains(cm(pt).contiguous(), cm(starts), W,
+                                    curve)
     sw = starts.reshape(B, W, S)
     s_of = torch.arange(n, device=pt.device) % S
     needs = s_of < torch.repeat_interleave(_first_start(sw), S, dim=-1)
     carry_full = torch.repeat_interleave(carry, S, dim=-1)
-    return seg_step(nat(local).contiguous(), carry_full, ~needs)
+    return seg_step(nat(local).contiguous(), carry_full, ~needs, curve=curve)
 
 
-def _weighted_total(buckets: torch.Tensor) -> torch.Tensor:
+def _weighted_total(buckets: torch.Tensor, curve: Curve) -> torch.Tensor:
     """Σ_{d≥1} d·B_d of packed (batch, 24, nb) buckets via suffix sums
     S_j = Σ_{d≥j} B_d, total = Σ_{j≥1} S_j. Returns (batch, 24, 1)."""
     B, _, nb = buckets.shape
@@ -118,15 +129,16 @@ def _weighted_total(buckets: torch.Tensor) -> torch.Tensor:
 
     def seg_scan(pt):
         if nb >= 2048 and nb % 512 == 0:
-            return _seg_scan_chained_full(pt, first, 512)
-        return _seg_scan_flat(pt, first)
+            return _seg_scan_chained_full(pt, first, 512, curve)
+        return _seg_scan_flat(pt, first, curve)
 
     suffix = seg_scan(buckets.flip(-1).contiguous()).flip(-1)
-    tmp = torch.cat([_idp(B, 1, buckets.device), suffix[:, :, 1:]], dim=2)
+    tmp = torch.cat([_idp(B, 1, buckets.device, curve), suffix[:, :, 1:]],
+                    dim=2)
     return seg_scan(tmp.contiguous())[:, :, -1:]
 
 
-def _windows(pts_packed, skeys, sidx, c: int, W: int):
+def _windows(pts_packed, skeys, sidx, c: int, W: int, curve: Curve):
     """All windows of all batches at once on the chained path.
 
     pts_packed (24, N); skeys/sidx (R, N) sorted digits and their point
@@ -140,7 +152,7 @@ def _windows(pts_packed, skeys, sidx, c: int, W: int):
     sidx_p = sidx.reshape(R, W, S).transpose(1, 2).reshape(R, N)
     starts_p = starts.reshape(R, W, S).transpose(1, 2).reshape(R, N)
     g = pts_packed[:, sidx_p].permute(1, 0, 2).contiguous()   # (R, 24, N)
-    local, carry = _seg_scan_chains(g, starts_p, W)
+    local, carry = _seg_scan_chains(g, starts_p, W, curve)
     del g
 
     nb = 1 << c
@@ -158,17 +170,21 @@ def _windows(pts_packed, skeys, sidx, c: int, W: int):
     fs = _first_start(starts.reshape(R, W, S))
     needs = ts < torch.gather(fs, 1, tl)
     cvals = torch.gather(carry, 2, tl[:, None, :].expand(R, 24, nb))
-    vals = seg_step(vals, cvals, ~needs)
-    vals = torch.where(present[:, None, :], vals, _idp(R, nb, dev))
-    return _weighted_total(vals.contiguous())
+    vals = seg_step(vals, cvals, ~needs, curve=curve)
+    vals = torch.where(present[:, None, :], vals, _idp(R, nb, dev, curve))
+    return _weighted_total(vals.contiguous(), curve)
 
 
 def msm_many(points: torch.Tensor, scalars: torch.Tensor, c: int = 8,
-             scalar_bits: int = SCALAR_BITS) -> torch.Tensor:
-    """B MSMs over the same points: Σ_i scalars[b, i]·points[i].
+             scalar_bits: Optional[int] = None,
+             curve: Curve = BN254) -> torch.Tensor:
+    """B MSMs over the same points of `curve`: Σ_i scalars[b, i]·points[i].
 
     points (N, 3, 8) projective; scalars (B, N, 8) NORMAL-form limbs (< 2^256,
-    only the low `scalar_bits` bits are read). Returns (B, 3, 8)."""
+    only the low `scalar_bits` bits are read: by default the width of the
+    curve's scalar field). Returns (B, 3, 8)."""
+    if scalar_bits is None:
+        scalar_bits = curve.SF.p.bit_length()
     N = points.shape[0]
     B = scalars.shape[0]
     dev = points.device
@@ -186,16 +202,17 @@ def msm_many(points: torch.Tensor, scalars: torch.Tensor, c: int = 8,
     keys = (digs << logn) | torch.arange(n, device=dev)
     skp = torch.sort(keys, dim=1).values        # keys are unique
     skeys, sidx = skp >> logn, skp & ((1 << logn) - 1)
-    pts_packed = curve.pack(points)[0]                     # (24, n)
-    sums = _windows(pts_packed, skeys, sidx, c, W)         # (B·nwin, 24, 1)
+    pts_packed = pack(points)[0]                           # (24, n)
+    sums = _windows(pts_packed, skeys, sidx, c, W, curve)  # (B·nwin, 24, 1)
     ws = sums.reshape(B, nwin, 24).transpose(1, 2).contiguous()
-    return curve.unpack(scale_reduce(ws, c)[:, :, None])[:, 0]
+    return unpack(scale_reduce(ws, c, curve=curve)[:, :, None])[:, 0]
 
 
 def msm(points: torch.Tensor, scalars: torch.Tensor, c: int = 8,
-        scalar_bits: int = SCALAR_BITS) -> torch.Tensor:
+        scalar_bits: Optional[int] = None,
+        curve: Curve = BN254) -> torch.Tensor:
     """Σ_i scalars[i]·points[i]: (N, 3, 8), (N, 8) normal form -> (3, 8)."""
-    return msm_many(points, scalars[None], c, scalar_bits)[0]
+    return msm_many(points, scalars[None], c, scalar_bits, curve)[0]
 
 
 def to_normal(mont: torch.Tensor) -> torch.Tensor:
@@ -206,6 +223,6 @@ def to_normal(mont: torch.Tensor) -> torch.Tensor:
 
 
 def msm_many_mont(points, mont_batch, c: int = 8,
-                  scalar_bits: int = SCALAR_BITS):
+                  scalar_bits: Optional[int] = None):
     """msm_many with Fr Montgomery scalars (converted first)."""
     return msm_many(points, to_normal(mont_batch), c, scalar_bits)

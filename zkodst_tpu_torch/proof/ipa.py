@@ -31,17 +31,20 @@ the reference's folding form (two MSMs over the surviving half and a
 give the same group elements, so the same bytes. The rest of L and R, ⟨a, b⟩·U and the
 blind's multiple of H, is made on the card from window tables of U and H
 (one gather and a pairwise fold on kernel 8, :func:`_bases_mul`), where
-the reference multiplies on the host. On BN254 the MSMs are the Pippenger of
-:mod:`..ops.msm`; on pallas, as in the reference, a per-lane
-double-and-add and a pairwise fold (:meth:`..ops.curve.Curve.scalar_mul`).
+the reference multiplies on the host. The MSMs are the Pippenger of
+:mod:`..ops.msm` on both curves (kernels 9–12, BN254's or pallas's
+instances), where the reference runs pallas's as a per-lane
+double-and-add and a pairwise fold: the same group elements, so the same
+bytes.
 
 Generators are the reference's try-and-increment hash to the curve
 (:func:`_hash_to_curve`): the candidates x are hashed on the host, and
 x³ + b, the square root and the check y² = x³ + b run over all candidates
 at once on the card (:func:`generators`); the BN254 root is
-(x³ + 3)^((q+1)/4) on kernel 1 (q ≡ 3 mod 4), the pallas root Tonelli–Shanks
-on the host (p ≡ 1 mod 4, at the few points it is run at). Either root
-is made even, as the reference does, so the points are the same.
+(x³ + 3)^((q+1)/4) on kernel 1 (q ≡ 3 mod 4), the pallas root a
+Tonelli–Shanks over all candidates at once on kernel 1 (p ≡ 1 mod 2^32),
+where the reference runs it on the host point by point. Either root is
+made even, as the reference does, so the points are the same.
 """
 
 from __future__ import annotations
@@ -65,8 +68,8 @@ from ..ops.pyfield import PALLAS_BASE, PF, VESTA_BASE
 from ..utils.device import resolve
 from . import shplonk
 
-# Pippenger window of the BN254 MSMs (the group elements do not depend on
-# it)
+# Pippenger window of the MSMs, on either curve (the group elements do not
+# depend on it)
 MSM_C = 13
 # counters hashed per generator in one pass of generators(); each passes
 # with probability ~1/2, and the indices left are hashed again
@@ -174,15 +177,41 @@ def _pow(F: Field, a: torch.Tensor, e: int) -> torch.Tensor:
     return acc
 
 
+def _tonelli_shanks(F: Field, pf: PF, a: torch.Tensor) -> torch.Tensor:
+    """A square root of each element of `a` where it has one, all at once
+    on kernel 1, for p − 1 = 2^s·t (t odd, s = 32 on pallas): r =
+    a^((t+1)/2) and e = a^t, so r² = a·e, with e of order dividing 2^(s−1)
+    where a is a square; from j = s − 1 down to 1, where e^(2^(j−1)) ≠ 1,
+    e takes a factor g^(2^(s−j)) and r its root g^(2^(s−j−1)) (g of order
+    2^s), which keeps r² = a·e and halves e's order, so e ends at 1. The
+    ~s²/2 squarings run over every element, whether it needs them or
+    not."""
+    p, s = F.p, pf.two_adicity
+    t = (p - 1) >> s
+    g = pow(pf.smallest_qnr(), t, p)
+    gs = F.from_ints([pow(g, 1 << k, p) for k in range(s)], a.device)
+    one = F.const(F.ONE, a.device)
+    x = _pow(F, a, (t - 1) // 2)
+    r = F.mul(x, a)                         # a^((t+1)/2)
+    e = F.mul(r, x)                         # a^t
+    for j in range(s - 1, 0, -1):
+        sq = e
+        for _ in range(j - 1):
+            sq = F.mul(sq, sq)
+        flip = ~torch.eq(sq, one).all(dim=-1, keepdim=True)
+        e = torch.where(flip, F.mul(e, gs[s - j]), e)
+        r = torch.where(flip, F.mul(r, gs[s - j - 1]), r)
+    return r
+
+
 def _sqrt(cfg: _CurveCfg, rhs: torch.Tensor) -> torch.Tensor:
     """A square root of each element where it has one (anything where it
-    has none). BN254: rhs^((q+1)/4) on the card. Pallas: Tonelli–Shanks on
-    the host."""
+    has none), on the card. BN254: rhs^((q+1)/4) (q ≡ 3 mod 4). Pallas
+    (p ≡ 1 mod 2^32): :func:`_tonelli_shanks`."""
     F = cfg.dev.F
     if F.p % 4 == 3:
         return _pow(F, rhs, (F.p + 1) // 4)
-    roots = [cfg.base_pf.sqrt(int(v)) or 0 for v in F.to_ints(rhs)]
-    return F.from_ints(roots, rhs.device)
+    return _tonelli_shanks(F, cfg.base_pf, rhs)
 
 
 def generators(cfg: _CurveCfg, msgs: Sequence[bytes],
@@ -318,16 +347,10 @@ def _sum_points(cfg: _CurveCfg, pts: torch.Tensor) -> torch.Tensor:
 
 def _msm(cfg: _CurveCfg, points: torch.Tensor, scalars: torch.Tensor,
          c: int = MSM_C) -> torch.Tensor:
-    """⟨scalars[b], points⟩ for (B, m, 8) NORMAL-form scalars -> (B, 3, 8).
-    BN254: the Pippenger MSM of window c (kernels 8–12). Pallas: the
-    reference's per-lane double-and-add and pairwise fold (kernel 8), all
-    B rows' lanes in one ladder."""
-    if cfg.name == "bn254":
-        return msm.msm_many(points, scalars, c)
-    B, m = scalars.shape[:2]
-    prods = cfg.dev.scalar_mul(points.expand(B, m, 3, 8).reshape(-1, 3, 8),
-                               scalars.reshape(-1, 8)).reshape(B, m, 3, 8)
-    return _sum_points(cfg, prods)
+    """⟨scalars[b], points⟩ for (B, m, 8) NORMAL-form scalars -> (B, 3, 8):
+    the Pippenger MSM of window c on the curve's instances of kernels
+    9–12, on either curve."""
+    return msm.msm_many(points, scalars, c, curve=cfg.dev)
 
 
 # fixed-base windows of U and H: BASE_W windows of BASE_C bits cover a
