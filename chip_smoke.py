@@ -30,7 +30,12 @@ wrapper's count, and no launch that moves a whole column) and the
 operands the binop wrappers copied whole on the main path, and, last,
 ``{"ok": true, "device": {...}}``. Kernels 4 and 5 are also held to
 their twins in both directions (and kernel 5 inclusive and exclusive) at
-every shape the path gave them.
+every shape the path gave them. Kernel 9's calls are recorded by form
+(natural, gathered, chains; in place where the path writes in place, and
+replayed so), each call's add density (adds / elements) is logged for
+the KZG and IPA paths and kept in the kernel line, and its bound counts
+what the form moves: its flags, three points (and the carry's index) an
+add, and the kept elements only where they are moved.
 The ``inv_batch`` runs in a process of its own (``--inv-batch`` does only
 that and prints its JSON).
 
@@ -259,6 +264,7 @@ class Recorder:
         self.calls = {}                 # (name, key) -> args
         self.n = {}                     # (name, key) -> calls
         self.work = {}                  # name -> [(bytes, operations)]
+        self.density = {}               # seg_step's key -> [adds / elements]
         self.saved = []
 
     def __enter__(self):
@@ -285,22 +291,34 @@ class Recorder:
                 return fn(*args, **kw)
             key = call_key(args, kw)
             if (as_name, key) not in self.calls:
-                self.calls[(as_name, key)] = (
-                    tuple(keep(a) for a in args),
-                    {n: keep(v) for n, v in kw.items()})
+                kept = tuple(keep(a) for a in args)
+                # an output written in place stays the operand it is
+                self.calls[(as_name, key)] = (kept, {
+                    n: kept[0] if n == "out" and args and v is args[0]
+                    else keep(v) for n, v in kw.items()})
             self.n[(as_name, key)] = self.n.get((as_name, key), 0) + 1
             self.work.setdefault(as_name, []).append(work(as_name, args, kw))
+            if as_name.startswith("seg_step"):
+                adds, elements, _ = step_adds(args, kw)
+                self.density.setdefault((as_name, key), []).append(
+                    adds / elements)
             return fn(*args, **kw)
         return rec
 
 
-def fresh(kw):
-    """`kw` with a new output buffer in place of a recorded one, so that a
-    kernel and its twin never write into one tensor."""
+def fresh(args, kw):
+    """A recorded call's (args, kw) for one more run: a new output buffer
+    in place of a recorded one, so that a kernel and its twin never write
+    into one tensor; where the call writes in place (its `out` is its
+    first operand), a copy of that operand as both."""
     import torch
 
-    return {n: torch.empty_like(v) if n == "out" and v is not None else v
-            for n, v in kw.items()}
+    out = kw.get("out")
+    if out is not None and args and out is args[0]:
+        p = args[0].clone()
+        return (p,) + tuple(args[1:]), {**kw, "out": p}
+    return args, {n: torch.empty_like(v) if n == "out" and v is not None
+                  else v for n, v in kw.items()}
 
 
 # a device kernel's name in a profiler trace -> its wrapper; the binop
@@ -424,7 +442,8 @@ def work(name, args, kw=None):
     element; of a strided read only the elements read), each output
     written once; additions counted where this data needs them (a scan
     adds once per element that continues a segment, seg_step once per
-    element it does not keep)."""
+    element that needs its carry: its flags, and three points and the
+    carry's index an add; a kept element moved only out of place)."""
     import torch
 
     name = name.split("[")[0]           # a Pasta instantiation's is its
@@ -456,8 +475,13 @@ def work(name, args, kw=None):
     if name == "ec_add":
         return 3 * POINT_BYTES * B * n, EC_ADD_OPS * B * n
     if name == "seg_step":
-        adds = int((~args[2].bool()).sum())
-        return (3 * POINT_BYTES + 1) * B * n, EC_ADD_OPS * adds
+        kw = kw or {}
+        adds, _, moved = step_adds(args, kw)
+        flags = (_held_bytes(kw["fs"]) if kw.get("fs") is not None
+                 else B * n)
+        index = 8 * adds if kw.get("q_index") is not None else 0
+        return (flags + index + 3 * POINT_BYTES * adds
+                + 2 * POINT_BYTES * moved, EC_ADD_OPS * adds)
     if name in ("chain_scan_local", "seg_scan_tiles"):
         f = args[1].bool().clone()
         if name == "chain_scan_local":
@@ -471,6 +495,38 @@ def work(name, args, kw=None):
         return (POINT_BYTES * B * (n + 1),
                 B * (n - 1) * (c * DBL_OPS + EC_ADD_OPS))
     raise KeyError(name)
+
+
+def step_adds(args, kw):
+    """(adds, elements, kept elements moved) of a seg_step call: in the
+    chains form (`fs`) chain l's elements before its first start add, in
+    the others those that `keep` does not keep; kept elements are moved
+    unless the call writes in place."""
+    import torch
+
+    p = args[0]
+    B, _, n = p.shape
+    fs = kw.get("fs")
+    if fs is not None:
+        S = n // fs.shape[1]
+        adds = int(torch.clamp(fs, max=S).sum())
+    else:
+        keep = args[2] if len(args) > 2 else kw["keep"]
+        adds = int((~keep.bool()).sum())
+    moved = 0 if kw.get("out") is p else B * n - adds
+    return adds, B * n, moved
+
+
+def log_density(path, rec) -> dict:
+    """Log the add density (adds / elements) of each kernel-9 call a
+    Recorder saw, by call shape; returns {shape: [densities]}."""
+    out = {}
+    for (name, key), ds in sorted(rec.density.items(), key=str):
+        shape = " ".join(getattr(k, "name", str(k)) for k in key)
+        out[f"{name} {shape}"] = ds
+        log(f"{path} path: {name} {shape}: {len(ds)} calls, add density "
+            f"{[round(d, 4) for d in ds]}")
+    return out
 
 
 def blake2f_work(name, args, kw):
@@ -818,8 +874,10 @@ def hold_to_twins(rec, wrappers, plains, imad_rate, failures) -> dict:
         for flags in flag_variants(name, kw):
             if (name, call_key(args, flags)) in rec.calls:
                 continue
-            out = fn(*args, **fresh(flags))
-            ref = plain(*args, **fresh(flags))
+            a1, f1 = fresh(args, flags)
+            out = fn(*a1, **f1)
+            a1, f1 = fresh(args, flags)
+            ref = plain(*a1, **f1)
             torch.cuda.synchronize()
             said = {k: flags[k] for k in ("reverse", "exclusive")
                     if k in flags}
@@ -828,10 +886,12 @@ def hold_to_twins(rec, wrappers, plains, imad_rate, failures) -> dict:
             else:
                 log(f"{name} {key} with {said}: equal to plain")
             del out, ref
-        out = fn(*args, **fresh(kw))
+        a1, kw1 = fresh(args, kw)
+        out = fn(*a1, **kw1)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        ref = plain(*args, **fresh(kw))
+        a1, kw1 = fresh(args, kw)
+        ref = plain(*a1, **kw1)
         torch.cuda.synchronize()
         plain_once = (time.perf_counter() - t1) * 1e3
         outs, refs = ((out, ref) if isinstance(out, tuple)
@@ -848,16 +908,19 @@ def hold_to_twins(rec, wrappers, plains, imad_rate, failures) -> dict:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / imad_rate * 1e3
         shape = " ".join(getattr(k, "name", str(k)) for k in key)
-        kw1 = fresh(kw)
+        a1, kw1 = fresh(args, kw)
         entry = {"shape": shape, "calls": rec.n[(name, key)],
                  "max_abs_err": err,
-                 "ms": time_ms(lambda: fn(*args, **kw1), 7),
+                 "ms": time_ms(lambda: fn(*a1, **kw1), 7),
                  "plain_ms": plain_once, "bound_ms": max(t_bytes, t_ops),
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         log(f"{name} {shape}: {'equal to' if err == 0 else 'DIFFERS from'} "
             f"plain; kernel {entry['ms']:.4f} ms, plain {plain_once:.1f} ms "
             f"(one cold call), bound {entry['bound_ms']:.4f} ms "
             f"({entry['bound_by']})")
+        ds = getattr(rec, "density", {}).get((name, key))
+        if ds:                          # kernel 9: adds / elements
+            entry["add_density"] = sum(ds) / len(ds)
         if name == "scale_reduce":      # latency-bound: its own floor
             entry["serial_steps"] = serial_steps(args)
             entry["us_per_step"] = entry["ms"] * 1e3 / entry["serial_steps"]
@@ -898,7 +961,7 @@ def kernel_tables():
         "cumprod_tile": [(kmul, "cumprod_tile")],
         "ntt_tail": [(ontt, "ntt_tail")],
         "ntt_head": [(ontt, "ntt_head")],
-        "ec_add": [(kec, "ec_add")],
+        "ec_add": [(kec, "ec_add"), (msm, "ec_add")],
         "seg_step": [(msm, "seg_step")],
         "seg_scan_tiles": [(msm, "seg_scan_tiles")],
         "chain_scan_local": [(msm, "chain_scan_local")],
@@ -1803,6 +1866,7 @@ def ipa_phase(inputs, kzg_proof, kzg_calls, sites, wrappers, plains,
     calls = {name: sum(c for (nm, _), c in rec.n.items() if nm == name)
              for name in wrappers}
     faults += trace_faults("ipa", trace, calls)
+    record["seg_step_density"] = log_density("ipa", rec)
     traced = trace["traced"] if trace else {}
     path = {}
     for name in wrappers:
@@ -1934,7 +1998,7 @@ def pasta_phase(imad_rate):
     faults, record = [], {}
     sites = {name: [(kmul, name)] for name in ("mulmod", "addmod",
                                                "submod")}
-    sites["ec_add"] = [(kec, "ec_add")]
+    sites["ec_add"] = [(kec, "ec_add"), (msm, "ec_add")]
     for name in ("seg_step", "seg_scan_tiles", "chain_scan_local",
                  "scale_reduce"):
         sites[name] = [(msm, name)]
@@ -2258,6 +2322,7 @@ def main(argv) -> int:
     failures += trace_faults(
         "kzg", trace, {name: sum(c for (nm, _), c in rec.n.items()
                                  if nm == name) for name in sites})
+    kzg_density = log_density("kzg", rec)
     traced = trace["traced"] if trace else {}
     t_check = time.perf_counter()
     records = hold_to_twins(rec, wrappers, plains, imad_rate, failures)
@@ -2275,8 +2340,8 @@ def main(argv) -> int:
             continue
         top, (args, kw) = shapes[0]
         if top["plain_ms"] < 2000:          # warm plain time where it is short
-            kw1 = fresh(kw)
-            top["plain_ms"] = time_ms(lambda: plains[name](*args, **kw1), 3)
+            a1, kw1 = fresh(args, kw)
+            top["plain_ms"] = time_ms(lambda: plains[name](*a1, **kw1), 3)
         # the recorded run's device time of this kernel, from its trace,
         # against every call's bound on that call's own inputs
         calls = sum(e["calls"] for e, _ in shapes)
@@ -2334,8 +2399,10 @@ def main(argv) -> int:
             for label, run in mesh.items()
             if label != "cli" and run["ranks"]}
     # -- the IPA backend: the flagship over BN254, then Pasta's PCS ---------
-    phase_line("ipa", *ipa_phase(inputs, want_bytes, set(rec.calls), sites,
-                                 wrappers, plains, imad_rate), failures)
+    ipa_rec, ipa_faults = ipa_phase(inputs, want_bytes, set(rec.calls),
+                                    sites, wrappers, plains, imad_rate)
+    ipa_density = ipa_rec.pop("seg_step_density")
+    phase_line("ipa", ipa_rec, ipa_faults, failures)
     pasta, pasta_faults, pasta_held = pasta_phase(imad_rate)
     phase_line("pasta", pasta, pasta_faults, failures)
     for name, recs in pasta_held.items():
@@ -2352,6 +2419,8 @@ def main(argv) -> int:
                       "profile": profile}), flush=True)
     print(json.dumps({"kernels": line, "inv_batch": inv,
                       "operand_copies": copies,
+                      "seg_step_density": {"kzg": kzg_density,
+                                           "ipa": ipa_density},
                       "kzg_trace_lost": kzg_trace_lost}), flush=True)
     if failures:
         for f in failures:

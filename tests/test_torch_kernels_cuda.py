@@ -205,6 +205,122 @@ def test_seg_step(dev, pts):
           ec.seg_step_plain(P, Q, f))
 
 
+# kernel 9's forms on patterns that stress its compaction: the needing
+# elements of each 32-element word balloted into a block's list and added
+# on all its lanes, kept ones left alone (in place) or moved (out of
+# place)
+STEP_PATTERNS = ["none", "all", "one_per_word", "word_boundary",
+                 "alternate", "quarter", "added_at_24", "listed_at_23"]
+STEP_FORMS = ["natural", "natural_in_place", "gathered",
+              "gathered_in_place", "chains"]
+
+
+def _step_needs(pattern, n, rows=2, seed=0):
+    """(rows, n) bool: the elements that add."""
+    need = torch.zeros((rows, n), dtype=torch.bool)
+    if pattern == "all":
+        need[:] = True
+    elif pattern == "one_per_word":
+        for e0 in range(0, n, 32):
+            need[:, min(n - 1, e0 + (7 * e0 // 32) % 32)] = True
+    elif pattern == "word_boundary":           # and the rows' ends
+        for e in (0, 31, 32, 63, 64, n - 1):
+            need[:, e] = True
+    elif pattern == "alternate":
+        need[:, 1::2] = True
+    elif pattern in ("added_at_24", "listed_at_23"):
+        # kStepDirect = 24 needing lanes of a word add at once; 23 are
+        # listed
+        k = 24 if pattern == "added_at_24" else 23
+        for e0 in range(0, n, 32):
+            need[:, e0 + 32 - k:e0 + 32] = True
+    elif pattern == "quarter":
+        r = np.random.default_rng(seed)
+        need = torch.from_numpy(r.random((rows, n)) < 0.25)
+    return need
+
+
+def _step_call(dev, form, pattern, P, Q, C, n=None):
+    """(kernel output on `dev`, its twin's on the host) of one form of
+    kernel 9 over two rows made of P and Q."""
+    n = n or P.shape[2]
+    p = torch.cat([P, Q])[:, :, :n].contiguous()
+    q = torch.cat([Q, P])[:, :, :n].contiguous()
+    if form == "chains":                 # in place, chain-major
+        W = 64 if n % 64 == 0 else 8
+        S = n // W
+        fs = {"none": torch.zeros((2, W), dtype=torch.int64),
+              "all": torch.full((2, W), S, dtype=torch.int64),
+              "one_per_word": torch.ones((2, W), dtype=torch.int64),
+              "word_boundary": torch.tensor([[S, 0] * (W // 2)] * 2),
+              "alternate": torch.tensor([[S - 1, 1] * (W // 2)] * 2),
+              "quarter": torch.from_numpy(np.random.default_rng(5)
+                                          .integers(0, S // 2 + 1, (2, W))),
+              # chain-major words of 32 chains at one s: 24 or 23 chains
+              # of each 32 still before their first start
+              "added_at_24": torch.tensor(([S // 2] * 24 + [0] * 8)
+                                          * W)[:2 * W].reshape(2, W),
+              "listed_at_23": torch.tensor(([S // 2] * 23 + [0] * 9)
+                                           * W)[:2 * W].reshape(2, W),
+              }[pattern]
+        carry = q[:, :, :W].contiguous()
+        pd, pp = p.to(dev).clone(), p.clone()
+        out = ec.seg_step(pd, carry.to(dev), fs=fs.to(dev), curve=C, out=pd)
+        ref = ec.seg_step_plain(pp, carry, curve=C, fs=fs, out=pp)
+        assert out is pd and ref is pp
+        return out, ref
+    keep = ~_step_needs(pattern, n)
+    kw, kwp = {}, {}
+    if form.startswith("gathered"):
+        m = 96
+        idx = torch.from_numpy(np.random.default_rng(6).integers(0, m,
+                                                                 (2, n)))
+        q = q[:, :, :m].contiguous()
+        kw["q_index"], kwp["q_index"] = idx.to(dev), idx
+    pd, pp = p.to(dev), p.clone()
+    if form.endswith("in_place"):
+        kw["out"], kwp["out"] = pd, pp
+    out = ec.seg_step(pd, q.to(dev), keep.to(dev), C, **kw)
+    ref = ec.seg_step_plain(pp, q, keep, C, **kwp)
+    if form.endswith("in_place"):
+        assert out is pd and ref is pp
+    return out, ref
+
+
+@pytest.mark.parametrize("pattern", STEP_PATTERNS)
+@pytest.mark.parametrize("form", STEP_FORMS)
+@pytest.mark.parametrize("on", ["bn254", "pallas"])
+def test_seg_step_forms(dev, pts, pallas_pts, form, pattern, on):
+    """Each form of kernel 9 on each pattern and curve, equal to its twin
+    limb for limb, one launch counted on its curve."""
+    from zkodst_tpu_torch import kernels
+
+    C = curve.PASTA if on == "pallas" else curve.BN254
+    P, Q, _ = pallas_pts if on == "pallas" else pts
+    kernels.reset_counts()
+    out, ref = _step_call(dev, form, pattern, P, Q, C)
+    _same(out, ref)
+    counted = (kernels.pasta_counts()["seg_step[pallas]"] if on == "pallas"
+               else kernels.counts()["seg_step"])
+    assert counted == 1
+
+
+@pytest.mark.parametrize("form", STEP_FORMS)
+@pytest.mark.parametrize("n,tile", [(1000, 0), (998, 0), (1024, 32),
+                                    (998, 96), (1000, 2048), (1024, 64)])
+def test_seg_step_ragged_and_tiles(dev, pts, monkeypatch, form, n, tile):
+    """Rows that end inside a word and inside a tile (n % 32 ≠ 0; tiles
+    run across rows), the least and the largest tile and a few between,
+    besides the one-wave tile the wrapper leaves to the kernel: each form
+    on a quarter of adds."""
+    monkeypatch.setattr(ec, "SEG_TILE", tile)
+    P, Q, _ = pts
+    if form == "chains" and n % 8:
+        n = 1000                      # chains need n % W == 0 (W = 8)
+    out, ref = _step_call(dev, form, "quarter", P, Q, curve.BN254, n)
+    _same(out, ref)
+
+
 @pytest.mark.parametrize("W", [128, 512])
 def test_chain_scan_local(dev, pts, W):
     P, _, f = pts
@@ -428,7 +544,7 @@ def test_ec_kernels_refuse_an_unknown_curve(dev):
     x = torch.zeros((1, 24, 4), dtype=torch.int32, device=dev)
     with pytest.raises(RuntimeError, match="cudaError"):
         call("ec", "zk_seg_step", x.data_ptr(), x.data_ptr(), x.data_ptr(),
-             x.data_ptr(), 1, 4, 2)
+             None, None, x.data_ptr(), 1, 4, 4, 0, 0, 2)
 
 
 def test_bn254_kernels_refuse_pasta_fields(dev):

@@ -73,25 +73,196 @@ ec_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
   zk::store_pt(o + b * 24 * n, n, e, s);
 }
 
-// o = keep ? p : p + q. Applies a carry q to the elements whose segment
-// began before them (keep = 0).
-template <class C>
-__global__ void __launch_bounds__(kThreads)
-seg_step_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
-                const uint8_t* __restrict__ keep, uint32_t* __restrict__ o,
-                int64_t batch, int64_t n) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= batch * n) return;
-  int64_t b = i / n, e = i % n;
-  zk::Pt x;
-  zk::load_pt(p + b * 24 * n, n, e, x);
-  if (!keep[i]) {
-    zk::Pt y, s;
-    zk::load_pt(q + b * 24 * n, n, e, y);
-    zk::ec_add<C>(x, y, s);
-    x = s;
+// seg_step (kernel 9): o = keep ? p : p + q, a carry q applied to the
+// elements whose segment began before them. Three forms, one kernel
+// (SegStep holds which):
+// - natural: o[e] = p[e] (+ q[e]), q of p's shape, a keep byte a element;
+// - gathered: the same, with q read at q_index[e] from a (batch, 24, nq)
+//   tensor (the MSM's bucket tails: each reads its chain's carry);
+// - chains: p chain-major with W chains of S = n / W (element s·W + l is
+//   chain l's s-th), q one carry a chain (batch, 24, W), and element
+//   (l, s) needs its add iff s < fs[l], the chain's first segment start
+//   (a prefix of each chain).
+// o may be p (in place).
+//
+// What bounds it on the H100. An add is ~3,200 32-bit multiply results
+// and moves at most three points, so the kernel is bound by the multiply
+// rate over the adds the data needs: the MSM's calls need a quarter of
+// their elements (bucket tails after a chain boundary) to all of them
+// (the suffix scan). One thread a element with a branch on keep paid a
+// whole add in every warp with one needing lane, so at 25% a call cost
+// what a dense one did. A sparse call has few adds for the card (41,000
+// at (20, 24, 8192), ten warps' worth an SM), so where they run matters
+// too: blocks of a fixed tile leave some SMs a block more than others,
+// and a tile with one add more than its threads runs a second round.
+//
+// This design compacts a tile of the call's elements a block, each tile a
+// contiguous run of the batch·n elements (rows end anywhere in it):
+// 1. each warp ballots its words of 32 elements (eight requested before
+//    they are balloted); a word with at least kStepDirect needing lanes
+//    adds them at once (three lanes in four or more busy, no list and
+//    no wait: a dense call runs as one thread a element); of the other
+//    words, warp 0 scans the counts and every needing element's place
+//    goes into a list in shared memory, in order;
+// 2. every thread runs adds from that list, a round of blockDim a time:
+//    each lane of a warp adds and a round's lanes read neighbouring
+//    elements;
+// 3. out of place, the kept elements are moved (coalesced, 4 bytes a
+//    lane and plane); in place they are neither read nor written.
+// The tile follows the data the forms carry on the MSM's path. The
+// natural and gathered forms (the bucket tails, a quarter adding) take
+// the tile that makes the call one wave of the blocks the card holds at
+// once, so that every SM gets the same share of the adds (~104 of 416
+// elements a block at (20, 24, 8192): one round). The chains form (on
+// the suffix scan every chain but one adds throughout) takes one round a
+// block, a tile of blockDim: blocks then start staggered, and one
+// block's loads overlap the others' adds; tiles of 512 and 2048 run 4
+// and 16 rounds a block in step, their loads exposed, 2% and 28% slower
+// on the H100 (tools/step_timing.py).
+constexpr int kStepMaxTile = 2048;      // elements a block at most
+constexpr int kStepWords = 8;           // words a warp requests at a time
+constexpr int kStepDirect = 24;         // needs that a word adds in place
+
+struct SegStep {
+  const uint32_t* p;
+  const uint32_t* q;
+  const uint8_t* keep;      // natural and gathered forms: 1 keeps p
+  const int64_t* qidx;      // gathered form: q's element of each element
+  const int64_t* fs;        // chains form: (batch, W) first starts
+  uint32_t* o;
+  int64_t batch, n, nq, W;  // W = 0: not the chains form
+  int tile;                 // elements a block, a multiple of 32
+};
+
+// Element L = b·n + j of p and o (j its place in its row): its row and
+// q's element it adds. batch·n < 2^31, so the divisions are 32-bit.
+struct StepAt {
+  int64_t b, j, qi;
+};
+
+__device__ __forceinline__ StepAt step_at(const SegStep& a, int64_t L) {
+  StepAt t;
+  const uint32_t row = (uint32_t)L / (uint32_t)a.n;
+  t.b = row;
+  t.j = (uint32_t)L - row * (uint32_t)a.n;
+  if (a.W) {
+    t.qi = (uint32_t)t.j % (uint32_t)a.W;
+  } else {
+    t.qi = a.qidx ? a.qidx[L] : t.j;
   }
-  zk::store_pt(o + b * 24 * n, n, e, x);
+  return t;
+}
+
+__device__ __forceinline__ bool step_needs(const SegStep& a, int64_t L) {
+  if (!a.W) return !a.keep[L];
+  const uint32_t b = (uint32_t)L / (uint32_t)a.n;
+  const uint32_t j = (uint32_t)L - b * (uint32_t)a.n;
+  const uint32_t s = j / (uint32_t)a.W;
+  return s < a.fs[(int64_t)b * a.W + (j - s * (uint32_t)a.W)];
+}
+
+// The operands of element t's add.
+__device__ __forceinline__ void step_load(const SegStep& a, const StepAt& t,
+                                          zk::Pt& x, zk::Pt& y) {
+  zk::load_pt(a.p + t.b * 24 * a.n, a.n, t.j, x);
+  zk::load_pt(a.q + t.b * 24 * a.nq, a.nq, t.qi, y);
+}
+
+// Element t's add, its operands loaded.
+template <class C>
+__device__ __forceinline__ void step_add(const SegStep& a, const StepAt& t,
+                                         const zk::Pt& x, const zk::Pt& y) {
+  zk::Pt r;
+  zk::ec_add<C>(x, y, r);
+  zk::store_pt(a.o + t.b * 24 * a.n, a.n, t.j, r);
+}
+
+template <class C>
+__global__ void __launch_bounds__(kThreads, 3)
+seg_step_kernel(const SegStep a) {
+  __shared__ uint32_t need[kStepMaxTile / 32];   // ballot words
+  __shared__ uint32_t rest[kStepMaxTile / 32];   // their needs left to list
+  __shared__ int before[kStepMaxTile / 32];      // listed before a word
+  __shared__ uint16_t list[kStepMaxTile];        // needing elements
+  __shared__ int count;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int64_t total = a.batch * a.n;
+  const int64_t L0 = (int64_t)blockIdx.x * a.tile;
+  const int m = (int)(total - L0 < a.tile ? total - L0 : a.tile);
+  const int words = (m + 31) >> 5;
+  StepAt t;
+  zk::Pt x, y;
+  bool listing = false;            // this thread has an element to list
+  // 1. the tile's needs, a ballot a word; the list of needing elements
+  for (int wb = warp; wb < words; wb += nw * kStepWords) {
+    uint32_t xs = 0;                          // this lane's needs, a bit a word
+#pragma unroll
+    for (int u = 0; u < kStepWords; ++u) {
+      const int i = 32 * (wb + u * nw) + lane;
+      if (i < m && step_needs(a, L0 + i)) xs |= 1u << u;
+    }
+#pragma unroll 1
+    for (int u = 0; u < kStepWords; ++u) {
+      const int w = wb + u * nw;
+      if (w >= words) break;                  // the same in the whole warp
+      const bool mine = (xs >> u) & 1u;
+      const uint32_t bits = __ballot_sync(0xFFFFFFFFu, mine);
+      // a word that needs nearly every add is added here, by its lanes
+      const bool here = __popc(bits) >= kStepDirect;
+      if (here && mine) {
+        t = step_at(a, L0 + 32 * w + lane);
+        step_load(a, t, x, y);
+        step_add<C>(a, t, x, y);
+      }
+      listing |= mine && !here;
+      if (lane == 0) {
+        need[w] = bits;
+        rest[w] = here ? 0u : bits;
+      }
+    }
+  }
+  // a tile whose words were all added here lists nothing (the condition
+  // is the block's: the barriers inside are reached by all or none)
+  if (__syncthreads_or(listing)) {
+    if (warp == 0) {               // ≤ 64 words: two a lane
+      const int c0 = 2 * lane < words ? __popc(rest[2 * lane]) : 0;
+      const int c1 = 2 * lane + 1 < words ? __popc(rest[2 * lane + 1]) : 0;
+      int s = c0 + c1;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int v = __shfl_up_sync(0xFFFFFFFFu, s, d);
+        if (lane >= d) s += v;
+      }
+      if (2 * lane < words) before[2 * lane] = s - c0 - c1;
+      if (2 * lane + 1 < words) before[2 * lane + 1] = s - c1;
+      if (lane == 31) count = s;
+    }
+    __syncthreads();
+    for (int w = warp; w < words; w += nw) {
+      const uint32_t bits = rest[w];
+      if ((bits >> lane) & 1u)
+        list[before[w] + __popc(bits & ((1u << lane) - 1u))] =
+            (uint16_t)(32 * w + lane);
+    }
+    __syncthreads();
+    // 2. the listed adds, every lane busy
+    for (int k = threadIdx.x; k < count; k += blockDim.x) {
+      t = step_at(a, L0 + list[k]);
+      step_load(a, t, x, y);
+      step_add<C>(a, t, x, y);
+    }
+  }
+  // 3. out of place: the kept elements moved, a warp a word
+  if (a.o == a.p) return;
+  for (int w = warp; w < words; w += nw) {
+    const int i = 32 * w + lane;
+    if (i >= m || (need[w] >> lane) & 1u) continue;
+    t = step_at(a, L0 + i);
+    for (int plane = 0; plane < 24; ++plane)
+      a.o[(t.b * 24 + plane) * a.n + t.j] =
+          a.p[(t.b * 24 + plane) * a.n + t.j];
+  }
 }
 
 // Per-chain segmented inclusive scan. Chain l of a batch row owns elements
@@ -482,16 +653,62 @@ extern "C" int zk_ec_add(const void* p, const void* q, void* o,
   return (int)cudaGetLastError();
 }
 
+// Kernel 9 in one of its three forms (see seg_step_kernel): keep for
+// the natural and gathered forms, qidx (nullable) for the gathered one,
+// fs and W > 0 for the chains form (then keep and qidx are null and
+// nq = W); o may be p. A block
+// takes `tile` elements (a multiple of 32, ≤ 2048), or where tile is 0:
+// in the chains form kThreads, in the others the least multiple of 32
+// that makes the call one wave of the blocks the card holds at once (at
+// most 2048).
 extern "C" int zk_seg_step(const void* p, const void* q, const void* keep,
-                           void* o, long long batch, long long n, int curve,
-                           void* stream) {
+                           const void* qidx, const void* fs, void* o,
+                           long long batch, long long n, long long nq,
+                           long long W, int tile, int curve, void* stream) {
   if (batch * n == 0) return 0;
   const auto kernel = on_curve(curve, seg_step_kernel<zk::Bn254>,
                                seg_step_kernel<zk::Pallas>);
-  if (!kernel) return (int)cudaErrorInvalidValue;
-  kernel<<<grid(batch * n, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)p, (const uint32_t*)q, (const uint8_t*)keep,
-      (uint32_t*)o, batch, n);
+  const bool chains = W > 0;
+  if (!kernel || tile < 0 || tile > kStepMaxTile || tile % 32 ||
+      batch * n > 0x7FFFFFFFLL || chains != (fs != nullptr) ||
+      chains == (keep != nullptr) ||
+      (chains && (qidx != nullptr || n % W || nq != W)))
+    return (int)cudaErrorInvalidValue;
+  // blocks the card holds at once, per instance
+  static int resident[2] = {0, 0};
+  if (!resident[curve]) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    if (sms * per_sm == 0) return (int)cudaErrorInvalidConfiguration;
+    resident[curve] = sms * per_sm;
+  }
+  if (!tile && chains) tile = kThreads;
+  if (!tile) {
+    const long long per = (batch * n + resident[curve] - 1) / resident[curve];
+    tile = (int)((per + 31) / 32 * 32);
+    if (tile > kStepMaxTile) tile = kStepMaxTile;
+  }
+  SegStep a;
+  a.p = (const uint32_t*)p;
+  a.q = (const uint32_t*)q;
+  a.keep = (const uint8_t*)keep;
+  a.qidx = (const int64_t*)qidx;
+  a.fs = (const int64_t*)fs;
+  a.o = (uint32_t*)o;
+  a.batch = batch;
+  a.n = n;
+  a.nq = nq;
+  a.W = W;
+  a.tile = tile;
+  const long long blocks = (batch * n + tile - 1) / tile;
+  kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -25,6 +25,10 @@ not produced here: the saturated flag rows of ``_seg_step_kernel`` and
 ``scale_reduce`` takes the ``nlive`` window sums directly instead of a
 128-lane block padded with identities, and combines them by Horner with
 the complete doubling (``dbl_limbs``), the JAX msm's own association.
+``seg_step`` takes its callers' indexing (a carry a chain read through an
+index, or a chain's first start; chain-major elements) and may write in
+place, so that its callers make nothing at full size to call it; its
+twin materialises those inputs and computes the reference's step.
 """
 
 from __future__ import annotations
@@ -48,6 +52,11 @@ SCAN_CALL_THREADS = 16384
 SCAN_MAX_RUN = 16
 SCAN_LANES = 2
 SCAN_BLOCK = 128
+# seg_step: a block lists the elements of its tile that need an add and
+# runs those adds on all its lanes; SEG_TILE elements a block (a multiple
+# of 32, ≤ 2048), or 0: the kernel's choice for the form (a block a round
+# in the chains form, one wave of blocks in the others)
+SEG_TILE = 0
 
 
 def _packed(y: torch.Tensor) -> torch.Tensor:
@@ -69,6 +78,8 @@ def _flags(f: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     if f.shape != (like.shape[0], like.shape[2]):
         raise ValueError(f"flags {tuple(f.shape)} do not match points "
                          f"{tuple(like.shape)}")
+    if f.dtype == torch.bool and f.device == like.device:
+        return f.contiguous()           # a byte of 0 or 1 a flag as it is
     return f.to(device=like.device, dtype=torch.uint8).contiguous()
 
 
@@ -100,22 +111,96 @@ def ec_add(p: torch.Tensor, q: torch.Tensor,
 
 # -- kernel 9: o = keep ? p : p + q -------------------------------------------
 
-def seg_step_plain(p, q, keep, curve: Curve = BN254):
-    pl = lanes64(p)
-    s = add_limbs(pl, lanes64(q), curve)
-    return _packed(torch.where(keep.bool()[..., None, None], pl, s))
-
-
-def seg_step(p: torch.Tensor, q: torch.Tensor, keep: torch.Tensor,
-             curve: Curve = BN254) -> torch.Tensor:
+def _step_form(p, q, keep, q_index, fs, out):
+    """Check a seg_step call's operands; returns (keep as bytes or None,
+    the chain count W of the chains form or 0)."""
     _check_points(p, q)
+    B, _, n = p.shape
+    if out is not None:
+        _check_points(p, out)
+        if out.shape != p.shape:
+            raise ValueError(f"out {tuple(out.shape)} is not p's "
+                             f"{tuple(p.shape)}")
+    if fs is not None:
+        W = fs.shape[-1]
+        if keep is not None or q_index is not None:
+            raise ValueError("the chains form (fs) takes no keep and no "
+                             "q_index")
+        if fs.shape != (B, W) or n % W or q.shape != (B, 24, W):
+            raise ValueError(f"chains form: fs {tuple(fs.shape)}, q "
+                             f"{tuple(q.shape)} for p {tuple(p.shape)}")
+        return None, W
+    if keep is None:
+        raise ValueError("seg_step needs keep or fs")
     keep = _flags(keep, p)
+    if q_index is not None:
+        if q_index.shape != (B, n) or q.shape[0] != B:
+            raise ValueError(f"q_index {tuple(q_index.shape)}, q "
+                             f"{tuple(q.shape)} for p {tuple(p.shape)}")
+    elif q.shape != p.shape:
+        raise ValueError(f"seg_step shapes {tuple(p.shape)} "
+                         f"{tuple(q.shape)}")
+    return keep, 0
+
+
+def seg_step_plain(p, q, keep=None, curve: Curve = BN254, *, out=None,
+                   q_index=None, fs=None):
+    B, _, n = p.shape
+    pl = lanes64(p)
+    ql = lanes64(q)
+    if fs is not None:                   # chains: (l, s) at s·W + l
+        W = fs.shape[1]
+        l_of = torch.arange(n, device=p.device) % W
+        ql = ql[:, l_of]
+        need = torch.arange(n, device=p.device) // W < fs[:, l_of]
+    else:
+        if q_index is not None:
+            rows = torch.arange(B, device=p.device)[:, None]
+            ql = ql[rows, q_index]
+        need = ~keep.bool()
+    res = pl.clone()
+    if bool(need.any()):
+        res[need] = add_limbs(pl[need], ql[need], curve)
+    res = _packed(res)
+    if out is None:
+        return res
+    out.copy_(res)
+    return out
+
+
+def seg_step(p: torch.Tensor, q: torch.Tensor, keep=None,
+             curve: Curve = BN254, *, out=None, q_index=None,
+             fs=None) -> torch.Tensor:
+    """o = keep ? p : p + q on `curve`, in one of three forms:
+
+    - natural: q of p's shape, `keep` a (batch, n) flag row;
+    - gathered (`q_index`, (batch, n) int): element e adds
+      q[:, :, q_index[:, e]] of a (batch, 24, m) q;
+    - chains (`fs`, (batch, W) int): p chain-major with W chains of
+      S = n / W (element s·W + l is chain l's s-th), q one carry a chain
+      (batch, 24, W); (l, s) adds its chain's carry iff s < fs[:, l], in
+      place of its element.
+
+    The result goes into `out` where given; `out` may be p itself, and
+    then kept elements are not touched. q_index must index within q."""
+    keep, W = _step_form(p, q, keep, q_index, fs, out)
     if p.device.type == "cpu":
-        return seg_step_plain(p, q, keep, curve)
-    p, q = p.contiguous(), q.contiguous()
-    out = torch.empty_like(p)
-    call("ec", "zk_seg_step", p.data_ptr(), q.data_ptr(), keep.data_ptr(),
-         out.data_ptr(), p.shape[0], p.shape[2], curve.kernel_id,
+        return seg_step_plain(p, q, keep, curve, out=out, q_index=q_index,
+                              fs=fs)
+    if out is not None and not out.is_contiguous():
+        raise ValueError("seg_step writes into a contiguous out only")
+    if out is not p:
+        p = p.contiguous()
+    q = q.contiguous()
+    if out is None:
+        out = torch.empty_like(p)
+    idx = None if q_index is None else q_index.to(torch.int64).contiguous()
+    first = None if fs is None else fs.to(torch.int64).contiguous()
+    call("ec", "zk_seg_step", p.data_ptr(), q.data_ptr(),
+         None if keep is None else keep.data_ptr(),
+         None if idx is None else idx.data_ptr(),
+         None if first is None else first.data_ptr(), out.data_ptr(),
+         p.shape[0], p.shape[2], q.shape[2], W, SEG_TILE, curve.kernel_id,
          tag=_tag(curve))
     return out
 

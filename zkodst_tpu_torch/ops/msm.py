@@ -2,14 +2,16 @@
 
 Counterpart of the packed chained-scan path of ``zkodst_tpu/ops/msm.py``
 (``msm`` :385-484, ``_chain_window`` :341-381, ``_seg_scan_chains``
-:220-243, ``_seg_scan_chained_full`` :246-273, ``_weighted_total_packed``
-:276-297), batched over B scalar vectors and all windows at once:
+:220-243, ``_seg_scan_chained_full`` :246-273 (here in chain-major order,
+``_seg_scan_chained``), ``_weighted_total_packed`` :276-297), batched
+over B scalar vectors and all windows at once:
 
   per window:  sort (digit, index) -> gather points chain-major
                -> chain scan (kernel 11) + chain-aggregate scan (kernel 10)
                -> bucket sums gathered at each digit's last sorted row,
-                  cross-chain carries applied (kernel 9)
-               -> Σ d·B_d via two suffix-sum scans (kernels 11, 10, 9)
+                  cross-chain carries applied in place (kernel 9)
+               -> Σ d·B_d via a suffix-sum scan (kernels 11, 10, 9) and
+                  the sum of the suffix sums (kernels 11, 10, 8)
   combine:     Σ_w 2^(c·w)·S_w (kernel 12)
 
 Sorting, gathers, ``searchsorted`` and ``cumsum`` are glue, as in the
@@ -31,8 +33,8 @@ from typing import Optional
 
 import torch
 
-from ..kernels.ec import chain_scan_local, scale_reduce, seg_scan_tiles, \
-    seg_step
+from ..kernels.ec import chain_scan_local, ec_add, scale_reduce, \
+    seg_scan_tiles, seg_step
 from .curve import BN254, Curve, pack, unpack
 from .field import FR, MASK32
 
@@ -97,45 +99,43 @@ def _first_start(sw: torch.Tensor) -> torch.Tensor:
     return torch.where(sw.any(dim=-1), first, torch.full_like(first, S))
 
 
-def _seg_scan_chained_full(pt, starts, W: int, curve: Curve):
-    """Full segmented inclusive scan in natural order through the chained
-    kernel; chain l covers the natural range [l·S, (l+1)·S)."""
+def _seg_scan_chained(pt, starts, W: int, curve: Curve):
+    """Full segmented inclusive scan of chain-major points (chain l covers
+    the natural range [l·S, (l+1)·S), its s-th element at s·W + l; starts
+    in the same order), in chain-major order: the per-chain scan, and each
+    chain's carry added in place by kernel 9 to its elements before its
+    first start."""
     B, _, n = pt.shape
-    S = n // W
-
-    def cm(a):
-        return a.reshape(a.shape[:-1] + (W, S)).transpose(-1, -2) \
-            .reshape(a.shape)
-
-    def nat(a):
-        return a.reshape(a.shape[:-1] + (S, W)).transpose(-1, -2) \
-            .reshape(a.shape)
-
-    local, carry = _seg_scan_chains(cm(pt).contiguous(), cm(starts), W,
-                                    curve)
-    sw = starts.reshape(B, W, S)
-    s_of = torch.arange(n, device=pt.device) % S
-    needs = s_of < torch.repeat_interleave(_first_start(sw), S, dim=-1)
-    carry_full = torch.repeat_interleave(carry, S, dim=-1)
-    return seg_step(nat(local).contiguous(), carry_full, ~needs, curve=curve)
+    local, carry = _seg_scan_chains(pt, starts, W, curve)
+    fs = _first_start(starts.reshape(B, n // W, W).transpose(1, 2))
+    return seg_step(local, carry, curve=curve, fs=fs, out=local)
 
 
 def _weighted_total(buckets: torch.Tensor, curve: Curve) -> torch.Tensor:
     """Σ_{d≥1} d·B_d of packed (batch, 24, nb) buckets via suffix sums
     S_j = Σ_{d≥j} B_d, total = Σ_{j≥1} S_j. Returns (batch, 24, 1)."""
     B, _, nb = buckets.shape
-    first = torch.zeros((B, nb), dtype=torch.bool, device=buckets.device)
+    dev = buckets.device
+    first = torch.zeros((B, nb), dtype=torch.bool, device=dev)
     first[:, 0] = True
-
-    def seg_scan(pt):
-        if nb >= 2048 and nb % 512 == 0:
-            return _seg_scan_chained_full(pt, first, 512, curve)
-        return _seg_scan_flat(pt, first, curve)
-
-    suffix = seg_scan(buckets.flip(-1).contiguous()).flip(-1)
-    tmp = torch.cat([_idp(B, 1, buckets.device, curve), suffix[:, :, 1:]],
-                    dim=2)
-    return seg_scan(tmp.contiguous())[:, :, -1:]
+    if nb < 2048 or nb % 512:
+        suffix = _seg_scan_flat(buckets.flip(-1).contiguous(), first,
+                                curve).flip(-1)
+        tmp = torch.cat([_idp(B, 1, dev, curve), suffix[:, :, 1:]], dim=2)
+        return _seg_scan_flat(tmp.contiguous(), first, curve)[:, :, -1:]
+    # the chained scans in chain-major order throughout, of the reversed
+    # buckets (their flags are `first` in either order)
+    W = 512
+    rev = buckets.reshape(B, 24, W, nb // W).transpose(2, 3).flip((2, 3)) \
+        .reshape(B, 24, nb)
+    suffix = _seg_scan_chained(rev, first, W, curve)
+    # [0, S_1, ..., S_{nb-1}] chain-major is the chain-major suffix sums
+    # reversed, with the identity at 0; Σ_j S_j is the scan's last element
+    # alone: chain W − 1's local total plus its carry (it has no start)
+    tmp = suffix.flip(-1)
+    tmp[:, :, :1] = _idp(B, 1, dev, curve)
+    local, carry = _seg_scan_chains(tmp, first, W, curve)
+    return ec_add(local[:, :, -1:], carry[:, :, -1:], curve=curve)
 
 
 def _windows(pts_packed, skeys, sidx, c: int, W: int, curve: Curve):
@@ -166,11 +166,12 @@ def _windows(pts_packed, skeys, sidx, c: int, W: int, curve: Curve):
     idx = (ts * W + tl)[:, None, :].expand(R, 24, nb)
     vals = torch.gather(local, 2, idx)
     del local
-    # the carry applies iff the tail's segment began in an earlier chain
+    # the carry of chain tl applies iff the tail's segment began in an
+    # earlier chain: in place, each tail reading its chain's carry; an
+    # absent digit's sum is the identity below, so it adds nothing
     fs = _first_start(starts.reshape(R, W, S))
-    needs = ts < torch.gather(fs, 1, tl)
-    cvals = torch.gather(carry, 2, tl[:, None, :].expand(R, 24, nb))
-    vals = seg_step(vals, cvals, ~needs, curve=curve)
+    keep = ~present | (ts >= torch.gather(fs, 1, tl))
+    seg_step(vals, carry, keep, curve, out=vals, q_index=tl)
     vals = torch.where(present[:, None, :], vals, _idp(R, nb, dev, curve))
     return _weighted_total(vals.contiguous(), curve)
 
