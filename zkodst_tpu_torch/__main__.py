@@ -2,8 +2,11 @@
 ``python -m zkodst_tpu``, on the card unless ``--device cpu`` is given.
 
   prove    setup → prove → verify of the EIP-152 vector at the configured
-           degree and instance count; prints the metrics JSON, then
-           ``{"proof_bytes": ..., "verified": ...}``. With ``--mesh N`` (or
+           degree and instance count; prints the metrics JSON, the
+           prove's spans, ``{"prove_spans": [...]}`` (each span's label,
+           parent, times on the host and the device, launches, host waits
+           and an MSM's sizes), then ``{"proof_bytes": ..., "verified":
+           ...}`` last. With ``--mesh N`` (or
            ``HxC``) the proof is sharded over N ranks, one process each:
            ``python -m torch.distributed.run --nproc-per-node N -m
            zkodst_tpu_torch prove --mesh N``; rank 0 alone prints.
@@ -109,6 +112,7 @@ def cmd_prove(args) -> int:
             dist.destroy_process_group()
     if lead:
         print(pipe.metrics.to_json())
+        print(json.dumps({"prove_spans": pipe.metrics.tree()}))
         print(json.dumps({"proof_bytes": len(proof), "verified": bool(ok)}))
     return 0 if ok else 1
 

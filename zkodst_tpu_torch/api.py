@@ -1,6 +1,6 @@
 """Top-level pipeline: setup (SRS and keygen) → witness → proof → verify,
-for the EIP-152 BLAKE2f circuit, with phase timing, the mock check and
-SRS and key caching.
+for the EIP-152 BLAKE2f circuit, with spans (:mod:`.utils.timing`), the
+mock check and SRS and key caching.
 
 Counterpart of ``zkodst_tpu/api.py``, with either commitment scheme: KZG
 (BN254 + SHPLONK) or the transparent IPA over BN254 (``scheme="ipa"``),
@@ -10,7 +10,12 @@ calls). The phases are
 labelled ``setup``, ``setup.keygen``, ``prove``, ``prove.witness``,
 ``prove.advice_commit``, ``prove.lookup_permute``,
 ``prove.grand_products_commit``, ``prove.quotient``,
-``prove.evaluations``, ``prove.multiopen`` and ``verify``.
+``prove.evaluations``, ``prove.multiopen`` and ``verify``; sub-spans
+inside them (``setup.params``, ``prove.quotient.constraints``, every
+MSM's ``<parent>.msm``, …) are recorded beside them and not echoed. The
+outermost span (``setup``, ``prove``, ``verify``) alone waits for the
+card, once, at its end; a phase's time runs to the card's completion of
+its work, without a wait of its own.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from .circuit import mock
 from .ops import blake2, u64
 from .proof import ipa, keygen, pcs, prover, srs, verifier
 from .utils.device import resolve
-from .utils.timing import PROVE, SETUP, VERIFY, Metrics
+from .utils.timing import PROVE, SETUP, VERIFY, Metrics, span
 
 
 @dataclass
@@ -118,13 +123,14 @@ def setup_blake2f(k: int = 17, n_inst: int = 1, rounds: int = 12,
     with metrics.phase(SETUP):
         built = blake2f_circuit.Blake2fCircuit(k=k, n_inst=n_inst,
                                                rounds=rounds, device=dev)
-        if scheme == "ipa":
-            params = ipa.setup(k, cache_dir=cache_dir, device=dev)
-        elif cache_dir is not None:
-            params = srs.get_or_create(k, cache_dir, seed=srs_seed,
-                                       device=dev)
-        else:
-            params = srs.setup(k, seed=srs_seed, device=dev)
+        with span("params"):
+            if scheme == "ipa":
+                params = ipa.setup(k, cache_dir=cache_dir, device=dev)
+            elif cache_dir is not None:
+                params = srs.get_or_create(k, cache_dir, seed=srs_seed,
+                                           device=dev)
+            else:
+                params = srs.setup(k, seed=srs_seed, device=dev)
         with metrics.phase("setup.keygen"):
             pk = keygen.keygen(params, built.circ, cache_dir=cache_dir)
     if shared and not mesh.rank:

@@ -35,6 +35,7 @@ from ..kernels import blake2 as kblake2
 from ..ops import u64
 from ..ops.blake2 import G_INDICES, IV, SIGMA
 from ..utils.device import resolve
+from ..utils.timing import upload
 from .expr import Const, V
 from .ir import BLINDING_ROWS, CircuitDef, CopyGroup, Gate, Lookup
 from .spread import spread_int, table_u64
@@ -653,7 +654,7 @@ class Blake2fCircuit:
                  for x in (h, m, t, np.asarray(f).astype(bool))]
         assert [w.size for w in words] == [16 * B, 32 * B, 4 * B, B], \
             [w.size for w in words]
-        flat = torch.as_tensor(np.concatenate(words), device=self.device)
+        flat = upload(torch.from_numpy(np.concatenate(words)), self.device)
         h, m, t, f = (x.view(shape) for x, shape in zip(
             flat.split([w.size for w in words]),
             ((B, 8, 2), (B, 16, 2), (B, 2, 2), (B,))))

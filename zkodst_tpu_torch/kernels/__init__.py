@@ -5,7 +5,8 @@ it runs the kernel's plain PyTorch version (the CPU path, which the tests
 use); on a CUDA tensor it launches the kernel and raises if the build or
 the launch fails — there is no fallback from a kernel to its twin. Every
 accepted launch adds one to its entry point's count (``build.call``);
-:func:`reset_counts` and :func:`counts` read them per wrapper;
+:func:`reset_counts` clears them (and the host-wait counters of
+``utils/timing.py``) and :func:`counts` reads them per wrapper;
 :func:`copies` reads the binop operands copied whole since the reset.
 The Pasta instantiations of kernels 1–3 (on both Pasta fields) and 8–12
 (on the pallas curve: the addition and the Pippenger MSM's kernels; the
@@ -19,6 +20,7 @@ pairs).
 
 from __future__ import annotations
 
+from ..utils import timing
 from . import blake2, build, ec, mulmod, ntt
 
 # wrapper -> (wrapper function, its C entry point)
@@ -60,7 +62,10 @@ BLAKE2F_WRAPPERS = {
 
 
 def reset_counts() -> None:
+    """Clear the launch counts, the operand copies and the host-wait
+    counters (``utils.timing.COUNTERS``)."""
     build.LAUNCHES.clear()
+    timing.reset_counters()
     for kind in mulmod.OPERAND_COPIES:
         mulmod.OPERAND_COPIES[kind] = 0
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import timing
 from . import pyfield
 
 L = 8                   # 32-bit limbs per element
@@ -54,7 +55,7 @@ def limbs_to_ints(limbs) -> np.ndarray:
 
 def _np_u32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        x = x.detach().cpu().numpy()
+        x = timing.read(x)
     return np.asarray(x).astype(np.int64).astype(np.uint32)
 
 
@@ -187,9 +188,11 @@ class Field:
 
     @staticmethod
     def const(limbs: np.ndarray, device="cpu") -> torch.Tensor:
-        """uint32 limb array -> int32 tensor on `device`."""
+        """uint32 limb array -> int32 tensor on `device` (a copy from the
+        host: one host wait, counted)."""
         a = np.ascontiguousarray(np.asarray(limbs, np.uint32))
-        return torch.from_numpy(a.view(np.int32).copy()).to(device)
+        return timing.upload(torch.from_numpy(a.view(np.int32).copy()),
+                             device)
 
     # -- ring ops on int32 tensors -------------------------------------------
     def mul(self, a: torch.Tensor, b: torch.Tensor, out=None) -> torch.Tensor:
@@ -233,10 +236,12 @@ class Field:
         N = _scan_length(n, CHAIN_W)
         one = torch.from_numpy(self.ONE.view(np.int32))
         pre = torch.empty((N + 1, L), dtype=torch.int32, device=a.device)
-        pre[0] = one                            # pre[i] = a[0] · … · a[i−1]
+        with timing.host_wait():                # a copy from the host
+            pre[0] = one                        # pre[i] = a[0] · … · a[i−1]
         self._scan_into(a, pre[1:], False, CHAIN_W)
         suf = torch.empty((N + 1, L), dtype=torch.int32, device=a.device)
-        suf[N] = one                            # suf[i] = a[i] · … · a[n−1]
+        with timing.host_wait():
+            suf[N] = one                        # suf[i] = a[i] · … · a[n−1]
         self._scan_into(a, suf[:N], True, CHAIN_W)
         return self.mul(self.mul(pre[:n], suf[1:n + 1]), self.inv(pre[n]))
 

@@ -35,6 +35,7 @@ import torch
 
 from ..kernels.ec import chain_scan_local, ec_add, scale_reduce, \
     seg_scan_tiles, seg_step
+from ..utils.timing import host_wait, span
 from .curve import BN254, Curve, pack, unpack
 from .field import FR, MASK32
 
@@ -183,7 +184,8 @@ def msm_many(points: torch.Tensor, scalars: torch.Tensor, c: int = 8,
 
     points (N, 3, 8) projective; scalars (B, N, 8) NORMAL-form limbs (< 2^256,
     only the low `scalar_bits` bits are read: by default the width of the
-    curve's scalar field). Returns (B, 3, 8)."""
+    curve's scalar field). Returns (B, 3, 8). Opens the span ``msm``, which
+    counts the points times the batch and the windows, from the shapes."""
     if scalar_bits is None:
         scalar_bits = curve.SF.p.bit_length()
     N = points.shape[0]
@@ -192,21 +194,24 @@ def msm_many(points: torch.Tensor, scalars: torch.Tensor, c: int = 8,
     # wide windows pay only when 2^c is small next to N (floor 4)
     c = min(c, max(4, N.bit_length() - 1))
     nwin = (scalar_bits + c - 1) // c
-    n = -(-N // 128) * 128 if N > 128 else max(16, 1 << (N - 1).bit_length())
-    if n != N:
-        points = torch.cat([points, curve.identity((n - N,), dev)])
-        scalars = torch.cat([scalars, torch.zeros(
-            (B, n - N, 8), dtype=scalars.dtype, device=dev)], dim=1)
-    W = _chain_w(n)
-    logn = max(1, (n - 1).bit_length())
-    digs = _digits(scalars, c, nwin).reshape(B * nwin, n)
-    keys = (digs << logn) | torch.arange(n, device=dev)
-    skp = torch.sort(keys, dim=1).values        # keys are unique
-    skeys, sidx = skp >> logn, skp & ((1 << logn) - 1)
-    pts_packed = pack(points)[0]                           # (24, n)
-    sums = _windows(pts_packed, skeys, sidx, c, W, curve)  # (B·nwin, 24, 1)
-    ws = sums.reshape(B, nwin, 24).transpose(1, 2).contiguous()
-    return unpack(scale_reduce(ws, c, curve=curve)[:, :, None])[:, 0]
+    with span("msm", points=N * B, windows=B * nwin):
+        n = -(-N // 128) * 128 if N > 128 \
+            else max(16, 1 << (N - 1).bit_length())
+        if n != N:
+            points = torch.cat([points, curve.identity((n - N,), dev)])
+            scalars = torch.cat([scalars, torch.zeros(
+                (B, n - N, 8), dtype=scalars.dtype, device=dev)], dim=1)
+        W = _chain_w(n)
+        logn = max(1, (n - 1).bit_length())
+        digs = _digits(scalars, c, nwin).reshape(B * nwin, n)
+        keys = (digs << logn) | torch.arange(n, device=dev)
+        skp = torch.sort(keys, dim=1).values        # keys are unique
+        skeys, sidx = skp >> logn, skp & ((1 << logn) - 1)
+        pts_packed = pack(points)[0]                        # (24, n)
+        # the window sums, (B·nwin, 24, 1)
+        sums = _windows(pts_packed, skeys, sidx, c, W, curve)
+        ws = sums.reshape(B, nwin, 24).transpose(1, 2).contiguous()
+        return unpack(scale_reduce(ws, c, curve=curve)[:, :, None])[:, 0]
 
 
 def msm(points: torch.Tensor, scalars: torch.Tensor, c: int = 8,
@@ -219,7 +224,8 @@ def msm(points: torch.Tensor, scalars: torch.Tensor, c: int = 8,
 def to_normal(mont: torch.Tensor) -> torch.Tensor:
     """Fr Montgomery limbs -> normal form (Montgomery multiply by raw 1)."""
     one_raw = torch.zeros(8, dtype=torch.int32, device=mont.device)
-    one_raw[0] = 1
+    with host_wait():                       # a scalar copied from the host
+        one_raw[0] = 1
     return FR.mul(mont, one_raw.expand_as(mont))
 
 

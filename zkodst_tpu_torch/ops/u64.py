@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import timing
+
 MASK32 = 0xFFFFFFFF
 
 
@@ -33,7 +35,7 @@ def from_ints(xs) -> np.ndarray:
 def to_ints(w) -> np.ndarray:
     """(..., 2) pairs (numpy or tensor) -> object ndarray of Python ints."""
     if isinstance(w, torch.Tensor):
-        w = w.cpu().numpy()
+        w = timing.read(w)
     w = np.asarray(w).astype(np.int64)
     return w[..., 0].astype(object) + w[..., 1].astype(object) * (1 << 32)
 
@@ -42,7 +44,7 @@ def to_u32(w) -> np.ndarray:
     """(..., 2) pairs (tensor or numpy) -> the reference's uint32 numpy
     layout, on the host."""
     if isinstance(w, torch.Tensor):
-        w = w.cpu().numpy()
+        w = timing.read(w)
     return np.asarray(w).astype(np.uint32)
 
 

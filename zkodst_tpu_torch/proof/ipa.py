@@ -66,6 +66,7 @@ from ..ops.pyfield import FQ as PFQ
 from ..ops.pyfield import FR as PFR
 from ..ops.pyfield import PALLAS_BASE, PF, VESTA_BASE
 from ..utils.device import resolve
+from ..utils.timing import host_wait, span, upload
 from . import shplonk
 
 # Pippenger window of the MSMs, on either curve (the group elements do not
@@ -330,7 +331,8 @@ def _rand_scalar(rng=None, p: int = PFR.p) -> int:
 def _normal(F: Field, mont: torch.Tensor) -> torch.Tensor:
     """Montgomery limbs -> normal form (a product with raw 1, kernel 1)."""
     raw1 = torch.zeros(8, dtype=torch.int32, device=mont.device)
-    raw1[0] = 1
+    with host_wait():                       # a scalar copied from the host
+        raw1[0] = 1
     return F.mul(mont, raw1)
 
 
@@ -390,8 +392,8 @@ def _bases_mul(params: ParamsIPA, ips: torch.Tensor,
     tbl = _bases_table(params)
     dev = params.device
     m = ips.shape[0]
-    limbs = torch.cat([ips.to(torch.int64) & MASK32, torch.from_numpy(
-        ints_to_limbs(list(blinds)).astype(np.int64)).to(dev)])
+    limbs = torch.cat([ips.to(torch.int64) & MASK32, upload(torch.from_numpy(
+        ints_to_limbs(list(blinds)).astype(np.int64)), dev)])
     w = torch.arange(BASE_W, device=dev)
     per = 32 // BASE_C
     digits = (limbs[:, w // per] >> ((w % per) * BASE_C)) & ((1 << BASE_C)
@@ -644,35 +646,39 @@ def open_claims_compressed(params: ParamsIPA, dom, claims: List[
     if cfg.name != "bn254":
         raise ValueError("the pipeline's multiopen is BN254's")
     F, p = cfg.SF, cfg.sp
-    dev = claims[0].evals_dev.device
-    roots = pow_table(F, dom.omega, dom.n, dev)
-    C = len(claims)
-    S = max(len(cl.points) for cl in claims)
+    with span("h_pass"):
+        dev = claims[0].evals_dev.device
+        roots = pow_table(F, dom.omega, dom.n, dev)
+        C = len(claims)
+        S = max(len(cl.points) for cl in claims)
 
-    y = tw.squeeze_challenge()
-    evs = torch.stack([cl.evals_dev for cl in claims])
-    rs = [shplonk._interp(cl.points, cl.evals) for cl in claims]
-    rcoef = F.from_ints(
-        [[r[j] if j < len(r) else 0 for j in range(S)] for r in rs], dev)
-    plimbs = F.from_ints(
-        [[cl.points[j] if j < len(cl.points) else 0 for j in range(S)]
-         for cl in claims], dev)
-    pmask = torch.tensor([[j < len(cl.points) for j in range(S)]
-                          for cl in claims], device=dev)
-    ypows = [1] * C
-    for i in range(1, C):
-        ypows[i] = ypows[i - 1] * y % p
-    h_ev = shplonk._h_pass(evs, rcoef, plimbs, pmask,
-                           F.from_ints(ypows, dev), roots)
+        y = tw.squeeze_challenge()
+        evs = torch.stack([cl.evals_dev for cl in claims])
+        rs = [shplonk._interp(cl.points, cl.evals) for cl in claims]
+        rcoef = F.from_ints(
+            [[r[j] if j < len(r) else 0 for j in range(S)] for r in rs], dev)
+        plimbs = F.from_ints(
+            [[cl.points[j] if j < len(cl.points) else 0 for j in range(S)]
+             for cl in claims], dev)
+        pmask = shplonk.point_mask(claims, S, dev)
+        ypows = [1] * C
+        for i in range(1, C):
+            ypows[i] = ypows[i - 1] * y % p
+        h_ev = shplonk._h_pass(evs, rcoef, plimbs, pmask,
+                               F.from_ints(ypows, dev), roots)
+        h_coeffs = dom.intt(h_ev)
     r_h = _rand_scalar(rng, p)
-    tw.write_point(commit(params, dom.intt(h_ev), r_h))
+    tw.write_point(commit(params, h_coeffs, r_h))
 
     z = tw.squeeze_challenge()
-    zt_z, cs, const = shplonk._weights(claims, ypows, z)
-    l_ev = F.sum(F.mul(F.from_ints(cs, dev)[:, None, :], evs))
-    l_ev = F.sub(l_ev, F.from_ints(const, dev))
-    l_ev = F.sub(l_ev, F.mul(F.from_ints(zt_z, dev), h_ev))
-    open_poly(params, dom.intt(l_ev), (-zt_z * r_h) % p, z, 0, tw, rng=rng)
+    with span("l_pass"):
+        zt_z, cs, const = shplonk._weights(claims, ypows, z)
+        l_ev = F.sum(F.mul(F.from_ints(cs, dev)[:, None, :], evs))
+        l_ev = F.sub(l_ev, F.from_ints(const, dev))
+        l_ev = F.sub(l_ev, F.mul(F.from_ints(zt_z, dev), h_ev))
+        l_coeffs = dom.intt(l_ev)
+    with span("rounds"):
+        open_poly(params, l_coeffs, (-zt_z * r_h) % p, z, 0, tw, rng=rng)
 
 
 def verify_claims_compressed(params: ParamsIPA, dom,

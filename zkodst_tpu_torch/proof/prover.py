@@ -45,6 +45,7 @@ from ..ops.field import FR
 from ..ops.ntt import powers_table
 from ..ops.pyfield import FR as PFR
 from ..parallel.scan_sharded import carry_fold
+from ..utils.timing import host_wait, span, upload
 from . import constraints, pcs, shplonk
 from .domain import DELTA, EXT_FACTOR, Domain
 from .keygen import ProvingKey
@@ -65,7 +66,7 @@ def _u64_tensor(col, device) -> torch.Tensor:
     """An (n, 2) u64 column (tensor or uint32 numpy) as int64 on `device`."""
     if isinstance(col, torch.Tensor):
         return col.to(device)
-    return torch.from_numpy(np.asarray(col).astype(np.int64)).to(device)
+    return upload(torch.from_numpy(np.asarray(col).astype(np.int64)), device)
 
 
 def _blinds(rng: random.Random, cols: int, device) -> torch.Tensor:
@@ -101,11 +102,13 @@ def advice_phase(params: pcs.Params, circ: CircuitDef,
     reference's; IPA commits the coefficient forms, full-width scalars."""
     dev = pcs.device(params)
     with _phase(metrics, "prove.advice_commit"):
-        blinds = _blinds(rng, len(circ.advice_names), dev)
-        evals = _prep_advice(
-            torch.stack([advice_u64[name] for name in circ.advice_names]),
-            blinds, circ.n)
-        coeffs = Domain(circ.k).intt(evals) if pcs.is_ipa(params) else None
+        with span("prep"):
+            blinds = _blinds(rng, len(circ.advice_names), dev)
+            evals = _prep_advice(
+                torch.stack([advice_u64[name]
+                             for name in circ.advice_names]), blinds, circ.n)
+            coeffs = (Domain(circ.k).intt(evals) if pcs.is_ipa(params)
+                      else None)
         for pt in pcs.commit_columns(params, evals, coeffs, MSM_C,
                                      body_bits=64, tail_rows=BLINDING_ROWS,
                                      mesh=mesh, mesh_axis=mesh_axis):
@@ -160,12 +163,14 @@ def _lookup_perm_indices(in_d: torch.Tensor, tb_d: torch.Tensor, u: int):
     fill = ~first & usable
     nfrank = torch.cumsum(fill.to(torch.int64), 0) - 1
     dest = torch.zeros(n, dtype=torch.int64, device=dev)
-    dest[nfrank[fill]] = ids[fill]
+    with host_wait(2):                      # two boolean masks
+        dest[nfrank[fill]] = ids[fill]
     pos_in_t = torch.searchsorted(tk, sk)
     sperm = torch.where(first, perm_tb0[torch.clamp(pos_in_t, max=n - 1)],
                         torch.zeros_like(ids))
     # dest[lrank] with lrank = -1 reads dest[n-1]; only rows kept by `left`
-    sperm[dest[lrank][left]] = perm_tb0[left]
+    with host_wait(2):
+        sperm[dest[lrank][left]] = perm_tb0[left]
     sperm = torch.where(usable, sperm, ids)
     return perm_in, sperm
 
@@ -352,13 +357,15 @@ def eval_many(coeffs_list: List[torch.Tensor], points: List[int]):
     ``powers_dev``, here :func:`..ops.ntt.powers_table`), one product with
     the (M, n) coefficient stack and a sum along n (``field_sum``, here
     :meth:`..ops.field.Field.sum`)."""
-    stack = torch.stack(coeffs_list)
-    n, dev = stack.shape[1], stack.device
-    grid = torch.stack([
-        FR.sum(FR.mul(stack, powers_table(FR, x, n, dev)), dim=1)
-        for x in points], dim=1)
-    vals = FR.to_ints(grid)
-    return [[int(v) for v in row] for row in vals]
+    with span("grid"):
+        stack = torch.stack(coeffs_list)
+        n, dev = stack.shape[1], stack.device
+        grid = torch.stack([
+            FR.sum(FR.mul(stack, powers_table(FR, x, n, dev)), dim=1)
+            for x in points], dim=1)
+    with span("read"):
+        vals = FR.to_ints(grid)
+        return [[int(v) for v in row] for row in vals]
 
 
 def query_schedule(vk) -> List[Tuple[str, Tuple[int, ...]]]:
@@ -508,28 +515,29 @@ class Prover:
                  instance_u64: Dict[str, torch.Tensor],
                  seed: Optional[int] = None, metrics=None,
                  transcript_mode: str = "v1", mesh=None, mesh_axis="x"):
-        pcs.single_device(params, mesh)
-        self.params, self.pk, self.metrics = params, pk, metrics
-        self.mesh, self.mesh_axis = mesh, mesh_axis
-        self.circ = pk.vk.circ
-        self.dom = Domain(self.circ.k)
-        self.dev = pcs.device(params)
-        self.advice_u64 = advice_u64
-        self.rng = random.Random(_entropy(mesh, self.dev) if seed is None
-                                 else ("zkodst-blind", seed).__repr__())
-        self.tw = Blake2bWrite(transcript_mode)
-        self.evals: Dict[str, torch.Tensor] = {}
-        self.coeffs: Dict[str, torch.Tensor] = {}
-        self.challenges: Dict[str, int] = {}
-        pk.vk.hash_into(self.tw)
-        absorb_instances(self.tw, self.circ, instance_u64)
-        for name in self.circ.instance_names:
-            self.evals[name] = u64_cols_to_field(
-                FR, _u64_tensor(instance_u64[name], self.dev))
-        for name, fe in pk.fixed_evals.items():
-            self.evals[name] = fe
-        for i, se in enumerate(pk.sigma_evals):
-            self.evals[f"perm.sigma{i}"] = se
+        with span("init"):
+            pcs.single_device(params, mesh)
+            self.params, self.pk, self.metrics = params, pk, metrics
+            self.mesh, self.mesh_axis = mesh, mesh_axis
+            self.circ = pk.vk.circ
+            self.dom = Domain(self.circ.k)
+            self.dev = pcs.device(params)
+            self.advice_u64 = advice_u64
+            self.rng = random.Random(_entropy(mesh, self.dev) if seed is None
+                                     else ("zkodst-blind", seed).__repr__())
+            self.tw = Blake2bWrite(transcript_mode)
+            self.evals: Dict[str, torch.Tensor] = {}
+            self.coeffs: Dict[str, torch.Tensor] = {}
+            self.challenges: Dict[str, int] = {}
+            pk.vk.hash_into(self.tw)
+            absorb_instances(self.tw, self.circ, instance_u64)
+            for name in self.circ.instance_names:
+                self.evals[name] = u64_cols_to_field(
+                    FR, _u64_tensor(instance_u64[name], self.dev))
+            for name, fe in pk.fixed_evals.items():
+                self.evals[name] = fe
+            for i, se in enumerate(pk.sigma_evals):
+                self.evals[f"perm.sigma{i}"] = se
 
     def _pre_intt(self, names: List[str]) -> None:
         """Coefficient forms of final columns, for the quotient and the IPA
@@ -564,18 +572,22 @@ class Prover:
         circ = self.circ
         # the lookup row permutations depend only on the witness
         u = circ.usable_rows
-        self.lk_perms = {
-            lk.name: _lookup_perm_indices(
-                self.advice_u64[lk.input_cols[0]][:, 0],
-                _u64_tensor(circ.fixed[lk.table_cols[0]], self.dev)[:, 0], u)
-            for lk in circ.lookups}
+        with span("lookup_sort"):
+            self.lk_perms = {
+                lk.name: _lookup_perm_indices(
+                    self.advice_u64[lk.input_cols[0]][:, 0],
+                    _u64_tensor(circ.fixed[lk.table_cols[0]],
+                                self.dev)[:, 0], u)
+                for lk in circ.lookups}
         adv, adv_coeffs = advice_phase(self.params, circ, self.advice_u64,
                                        self.rng, self.tw, self.metrics,
                                        self.mesh, self.mesh_axis)
         self.evals.update(zip(circ.advice_names, adv))
         if adv_coeffs is not None:
             self.coeffs.update(zip(circ.advice_names, adv_coeffs))
-        self._pre_intt(list(circ.advice_names) + list(circ.instance_names))
+        with span("intt"):
+            self._pre_intt(list(circ.advice_names)
+                           + list(circ.instance_names))
         self.challenges["theta"] = self.tw.squeeze_challenge()
 
     def lookups(self) -> None:
@@ -583,17 +595,20 @@ class Prover:
         with _phase(self.metrics, "prove.lookup_permute"):
             self.lk_data = None
             if circ.lookups:
-                blinds = _blinds(self.rng, 2 * len(circ.lookups), self.dev)
-                self.lk_data = lookup_columns(circ, self.evals,
-                                              self.challenges["theta"],
-                                              self.lk_perms, blinds)
-                _, _, aps, sps = self.lk_data
-                names = []
-                for i, lk in enumerate(circ.lookups):
-                    self.evals[f"{lk.name}.a_perm"] = aps[i]
-                    self.evals[f"{lk.name}.s_perm"] = sps[i]
-                    names += [f"{lk.name}.a_perm", f"{lk.name}.s_perm"]
-                self._pre_intt(names)
+                with span("columns"):
+                    blinds = _blinds(self.rng, 2 * len(circ.lookups),
+                                     self.dev)
+                    self.lk_data = lookup_columns(circ, self.evals,
+                                                  self.challenges["theta"],
+                                                  self.lk_perms, blinds)
+                    _, _, aps, sps = self.lk_data
+                    names = []
+                    for i, lk in enumerate(circ.lookups):
+                        self.evals[f"{lk.name}.a_perm"] = aps[i]
+                        self.evals[f"{lk.name}.s_perm"] = sps[i]
+                        names += [f"{lk.name}.a_perm", f"{lk.name}.s_perm"]
+                with span("intt"):
+                    self._pre_intt(names)
                 for pt in self._commit(names):
                     self.tw.write_point(pt)
         self.challenges["beta"] = self.tw.squeeze_challenge()
@@ -606,27 +621,32 @@ class Prover:
         outside the phase, where its device work runs asynchronously into
         it, so here the phase holds them)."""
         circ, vk, u = self.circ, self.pk.vk, self.circ.usable_rows
-        bk = FR.from_ints(self.challenges["beta"], self.dev)
-        gk = FR.from_ints(self.challenges["gamma"], self.dev)
         names = []
         with _phase(self.metrics, "prove.grand_products_commit"):
-            carry = _one(self.dev)
-            for j, (chunk, (sig, ident)) in enumerate(
-                    zip(vk.perm_chunks, chunk_tables(self.pk))):
-                cols = torch.stack([self.evals[c] for c in chunk])
-                z, carry = perm_z_pass(cols, sig, ident, bk, gk, carry, u,
-                                       self.mesh, self.mesh_axis)
-                z[circ.n - BLINDING_ROWS:] = _blinds(self.rng, 1, self.dev)[0]
-                self.evals[f"perm.z{j}"] = z
-                names.append(f"perm.z{j}")
-            for i, lk in enumerate(circ.lookups):
-                a_cmp, s_cmp, aps, sps = (t[i] for t in self.lk_data)
-                z = lookup_z_pass(a_cmp, s_cmp, aps, sps, bk, gk, u,
-                                  self.mesh, self.mesh_axis)
-                z[circ.n - BLINDING_ROWS:] = _blinds(self.rng, 1, self.dev)[0]
-                self.evals[f"{lk.name}.z"] = z
-                names.append(f"{lk.name}.z")
-            self._pre_intt(names)
+            with span("perm_z"):
+                bk = FR.from_ints(self.challenges["beta"], self.dev)
+                gk = FR.from_ints(self.challenges["gamma"], self.dev)
+                carry = _one(self.dev)
+                for j, (chunk, (sig, ident)) in enumerate(
+                        zip(vk.perm_chunks, chunk_tables(self.pk))):
+                    cols = torch.stack([self.evals[c] for c in chunk])
+                    z, carry = perm_z_pass(cols, sig, ident, bk, gk, carry,
+                                           u, self.mesh, self.mesh_axis)
+                    z[circ.n - BLINDING_ROWS:] = _blinds(self.rng, 1,
+                                                         self.dev)[0]
+                    self.evals[f"perm.z{j}"] = z
+                    names.append(f"perm.z{j}")
+            with span("lookup_z"):
+                for i, lk in enumerate(circ.lookups):
+                    a_cmp, s_cmp, aps, sps = (t[i] for t in self.lk_data)
+                    z = lookup_z_pass(a_cmp, s_cmp, aps, sps, bk, gk, u,
+                                      self.mesh, self.mesh_axis)
+                    z[circ.n - BLINDING_ROWS:] = _blinds(self.rng, 1,
+                                                         self.dev)[0]
+                    self.evals[f"{lk.name}.z"] = z
+                    names.append(f"{lk.name}.z")
+            with span("intt"):
+                self._pre_intt(names)
             for pt in self._commit(names):
                 self.tw.write_point(pt)
         self.challenges["y"] = self.tw.squeeze_challenge()
@@ -643,6 +663,36 @@ class Prover:
             out.update(zip(grp, ext))
         return out
 
+    def _quotient_exts(self):
+        """The coset extensions the constraint system reads, and the
+        extended X; the key's share made once per key and mesh."""
+        pk, dom, n = self.pk, self.dom, self.dom.n
+        coeffs = self._all_coeffs()
+        cache = pk.prover_cache
+        if "quotient_names" not in cache:
+            rec = _RecCtx()
+            constraints.enumerate_constraints(pk.vk, rec)
+            names = sorted(rec.names)
+            e1 = torch.zeros((n, 8), dtype=torch.int32, device=self.dev)
+            e1[1] = _one(self.dev)
+            static = set(pk.fixed_coeffs) | {
+                f"perm.sigma{i}" for i in range(len(pk.sigma_coeffs))}
+            cache["quotient_names"] = names
+            cache["static_names"] = [nm for nm in names if nm in static]
+            cache["xext"] = dom.coeff_to_extended(e1)
+            cache["static_exts"] = {}
+        by_mesh = cache["static_exts"]
+        axis = self.mesh_axis
+        key = None if self.mesh is None else (
+            self.mesh, axis if isinstance(axis, str) else tuple(axis))
+        if key not in by_mesh:
+            by_mesh[key] = self._extend(coeffs, cache["static_names"])
+        names, static_exts = cache["quotient_names"], by_mesh[key]
+        exts = dict(static_exts)
+        exts.update(self._extend(
+            coeffs, [nm for nm in names if nm not in static_exts]))
+        return exts, cache["xext"]
+
     def quotient(self) -> None:
         """h = numerator / Z_H on the extended coset, its coefficients cut
         into EXT_FACTOR polynomials of n and committed (phase
@@ -654,43 +704,24 @@ class Prover:
         collectives stay in one order."""
         pk, dom, n = self.pk, self.dom, self.dom.n
         with _phase(self.metrics, "prove.quotient"):
-            coeffs = self._all_coeffs()
-            cache = pk.prover_cache
-            if "quotient_names" not in cache:
-                rec = _RecCtx()
-                constraints.enumerate_constraints(pk.vk, rec)
-                names = sorted(rec.names)
-                e1 = torch.zeros((n, 8), dtype=torch.int32, device=self.dev)
-                e1[1] = _one(self.dev)
-                static = set(pk.fixed_coeffs) | {
-                    f"perm.sigma{i}" for i in range(len(pk.sigma_coeffs))}
-                cache["quotient_names"] = names
-                cache["static_names"] = [nm for nm in names if nm in static]
-                cache["xext"] = dom.coeff_to_extended(e1)
-                cache["static_exts"] = {}
-            by_mesh = cache["static_exts"]
-            axis = self.mesh_axis
-            key = None if self.mesh is None else (
-                self.mesh, axis if isinstance(axis, str) else tuple(axis))
-            if key not in by_mesh:
-                by_mesh[key] = self._extend(coeffs, cache["static_names"])
-            names, static_exts = cache["quotient_names"], by_mesh[key]
-            exts = dict(static_exts)
-            exts.update(self._extend(
-                coeffs, [nm for nm in names if nm not in static_exts]))
-            chal = {k: self.challenges[k]
-                    for k in ("theta", "beta", "gamma", "y")}
-            h_ext = quotient_eval(pk.vk, exts, pk.ext_selectors, chal,
-                                  cache["xext"])
-            del exts                     # the extended columns: free them
-            self.lk_data = None
-            h_coeff = dom.extended_to_coeff(
-                h_ext, self.mesh, self.mesh_axis).reshape(EXT_FACTOR, n, 8)
-            del h_ext
-            h_evals = dom.ntt(h_coeff, self.mesh, self.mesh_axis)
-            for i in range(EXT_FACTOR):
-                self.coeffs[f"h{i}"] = h_coeff[i]
-                self.evals[f"h{i}"] = h_evals[i]
+            with span("extend"):
+                exts, xext = self._quotient_exts()
+            with span("constraints"):
+                chal = {k: self.challenges[k]
+                        for k in ("theta", "beta", "gamma", "y")}
+                h_ext = quotient_eval(pk.vk, exts, pk.ext_selectors, chal,
+                                      xext)
+                del exts                 # the extended columns: free them
+                self.lk_data = None
+            with span("h"):
+                h_coeff = dom.extended_to_coeff(
+                    h_ext, self.mesh, self.mesh_axis).reshape(EXT_FACTOR, n,
+                                                              8)
+                del h_ext
+                h_evals = dom.ntt(h_coeff, self.mesh, self.mesh_axis)
+                for i in range(EXT_FACTOR):
+                    self.coeffs[f"h{i}"] = h_coeff[i]
+                    self.evals[f"h{i}"] = h_evals[i]
             for pt in pcs.commit_coeff_many(self.params, h_coeff, MSM_C,
                                             self.mesh, self.mesh_axis):
                 self.tw.write_point(pt)
@@ -700,21 +731,23 @@ class Prover:
         """Every queried polynomial at x·ω^r, written in ``query_schedule``
         order (phase ``prove.evaluations``); one claim per polynomial."""
         dom, x = self.dom, self.challenges["x"]
-        sched = query_schedule(self.pk.vk)
-        all_rots = sorted({r for _, rots in sched for r in rots})
-        rot_pos = {r: i for i, r in enumerate(all_rots)}
-        coeffs = self._all_coeffs()
+        with span("claims"):
+            sched = query_schedule(self.pk.vk)
+            all_rots = sorted({r for _, rots in sched for r in rots})
+            rot_pos = {r: i for i, r in enumerate(all_rots)}
+            coeffs = self._all_coeffs()
         with _phase(self.metrics, "prove.evaluations"):
             grid = eval_many([coeffs[name] for name, _ in sched],
                              [rotation_point(dom, x, r) for r in all_rots])
-        self.claims = []
-        for i, (name, rots) in enumerate(sched):
-            evs = [grid[i][rot_pos[r]] for r in rots]
-            for e in evs:
-                self.tw.write_scalar(e)
-            self.claims.append(shplonk.Claim(
-                tuple(rotation_point(dom, x, r) for r in rots), tuple(evs),
-                evals_dev=self.evals[name]))
+        with span("claims"):
+            self.claims = []
+            for i, (name, rots) in enumerate(sched):
+                evs = [grid[i][rot_pos[r]] for r in rots]
+                for e in evs:
+                    self.tw.write_scalar(e)
+                self.claims.append(shplonk.Claim(
+                    tuple(rotation_point(dom, x, r) for r in rots),
+                    tuple(evs), evals_dev=self.evals[name]))
 
     def multiopen(self) -> None:
         """SHPLONK's W and W′, or IPA's W and opening (phase

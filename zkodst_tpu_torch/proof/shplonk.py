@@ -35,6 +35,7 @@ from ..ops import ntt as nttmod
 from ..ops import pycurve
 from ..ops.field import FR as DFR
 from ..ops.pyfield import FR
+from ..utils.timing import span, upload
 from . import pairing, srs
 from .domain import Domain
 
@@ -118,6 +119,13 @@ def _l_pass(evs, cks, constk, ztzk, h_ev, roots, zk):
     return DFR.mul(l_ev, DFR.inv_batch(DFR.sub(roots, zk)))
 
 
+def point_mask(claims: List[Claim], S: int, device) -> torch.Tensor:
+    """(C, S) bool: point j of claim i exists (the padded point sets'
+    mask), uploaded: one host wait."""
+    return upload(torch.tensor([[j < len(cl.points) for j in range(S)]
+                                for cl in claims]), device)
+
+
 def _weights(claims: List[Claim], ypows: List[int], z: int):
     """Z_T(z), and per claim c_i = y^i·Z_{T∖S_i}(z) and Σ c_i·r_i(z)."""
     p = FR.p
@@ -139,36 +147,40 @@ def _weights(claims: List[Claim], ypows: List[int], z: int):
 
 def open_claims(params: srs.ParamsKZG, dom: Domain, claims: List[Claim],
                 tw) -> None:
-    """Prover: writes W and W′ to the transcript."""
+    """Prover: writes W and W′ to the transcript (spans ``h_pass`` and
+    ``l_pass``: each up to its polynomial's coefficients)."""
     p = FR.p
-    dev = claims[0].evals_dev.device
-    roots = nttmod.pow_table(DFR, dom.omega, dom.n, dev)      # ω^j
-    S = max(len(cl.points) for cl in claims)
+    with span("h_pass"):
+        dev = claims[0].evals_dev.device
+        roots = nttmod.pow_table(DFR, dom.omega, dom.n, dev)      # ω^j
+        S = max(len(cl.points) for cl in claims)
 
-    y = tw.squeeze_challenge()
-    ypows = [1] * len(claims)
-    for i in range(1, len(claims)):
-        ypows[i] = ypows[i - 1] * y % p
+        y = tw.squeeze_challenge()
+        ypows = [1] * len(claims)
+        for i in range(1, len(claims)):
+            ypows[i] = ypows[i - 1] * y % p
 
-    evs = torch.stack([cl.evals_dev for cl in claims])
-    rs = [_interp(cl.points, cl.evals) for cl in claims]
-    rcoef = DFR.from_ints(
-        [[r[j] if j < len(r) else 0 for j in range(S)] for r in rs], dev)
-    plimbs = DFR.from_ints(
-        [[cl.points[j] if j < len(cl.points) else 0 for j in range(S)]
-         for cl in claims], dev)
-    pmask = torch.tensor([[j < len(cl.points) for j in range(S)]
-                          for cl in claims], device=dev)
-    h_ev = _h_pass(evs, rcoef, plimbs, pmask, DFR.from_ints(ypows, dev),
-                   roots)
-    tw.write_point(srs.commit_coeff(params, dom.intt(h_ev)))
+        evs = torch.stack([cl.evals_dev for cl in claims])
+        rs = [_interp(cl.points, cl.evals) for cl in claims]
+        rcoef = DFR.from_ints(
+            [[r[j] if j < len(r) else 0 for j in range(S)] for r in rs], dev)
+        plimbs = DFR.from_ints(
+            [[cl.points[j] if j < len(cl.points) else 0 for j in range(S)]
+             for cl in claims], dev)
+        pmask = point_mask(claims, S, dev)
+        h_ev = _h_pass(evs, rcoef, plimbs, pmask, DFR.from_ints(ypows, dev),
+                       roots)
+        h_coeffs = dom.intt(h_ev)
+    tw.write_point(srs.commit_coeff(params, h_coeffs))
 
     z = tw.squeeze_challenge()
-    zt_z, cs, const = _weights(claims, ypows, z)
-    hp_ev = _l_pass(evs, DFR.from_ints(cs, dev), DFR.from_ints(const, dev),
-                    DFR.from_ints(zt_z, dev), h_ev, roots,
-                    DFR.from_ints(z, dev))
-    tw.write_point(srs.commit_coeff(params, dom.intt(hp_ev)))
+    with span("l_pass"):
+        zt_z, cs, const = _weights(claims, ypows, z)
+        hp_ev = _l_pass(evs, DFR.from_ints(cs, dev),
+                        DFR.from_ints(const, dev), DFR.from_ints(zt_z, dev),
+                        h_ev, roots, DFR.from_ints(z, dev))
+        hp_coeffs = dom.intt(hp_ev)
+    tw.write_point(srs.commit_coeff(params, hp_coeffs))
 
 
 def g1_msm(points: Sequence[object], scalars: Sequence[int]):
