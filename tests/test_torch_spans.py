@@ -5,21 +5,29 @@ CPU: a span tree's labels, parents and prove ids; the last prove's spans
 as the CLI prints them; the span log's cap and its indices; a sub-span
 with no span open does nothing; a nested close calls no ``torch.cuda.synchronize`` and
 the outermost close one, and every CUDA event is released then (a
-stand-in card); ``kernels.reset_counts()`` clears the counters; a toy
-prove counts the same host waits each time, the pinned number of its
-read, upload and mask sites; the five readers on a stand-in run.
+stand-in card); ``kernels.reset_counts()`` clears the counters; a copy
+from the host counts as an upload up to ``timing.UPLOAD_MAX`` bytes and
+as a wait above it; the staging ring's slots on a stand-in card; a toy
+prove counts the same host waits and uploads each time, the pinned number
+of its read, upload and mask sites, and its proofs' bytes are pinned; the
+six readers on a stand-in run.
 
 Card (``cuda``; skips without one): at k = 17 a warm KZG and a warm IPA
 prove count as many host waits as the sync debug mode reports
 synchronizing ops (plus the outermost span's wait), hold no CUDA event
 once returned, and each phase's median over 30 warm proves lies within
 10% (or 0.1 ms) of its median over 30 proves that synchronize at each
-phase's end, in turns (a phase's time is bimodal from prove to prove). This file imports no JAX; on a card machine:
+phase's end, in turns (a phase's time is bimodal from prove to prove);
+a steady prove waits at most 45 (KZG) or 120 (IPA) times; 10 steady
+proves allocate no pinned memory; uploads read at once by a kernel, and
+the ring's slots reused, while a spin kernel holds the stream, give the
+uploaded values. This file imports no JAX; on a card machine:
 ``PYTHONPATH=. python -m pytest --noconftest tests/test_torch_spans.py``.
 """
 
 import contextlib
 import gc
+import hashlib
 import importlib.util
 import json
 import os
@@ -48,10 +56,16 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CACHE = os.path.join(REPO, "tests", "golden", "dryrun_cache")
 # host waits of one warm toy prove (k = 5, one lookup, no instance
-# column): 11 reads back, 80 copies from the host (constants, challenges,
-# blinds, the lookup table), 19 synchronizing ops (the inverses' copies
-# into a slice, scalar copies, the lookup sort's boolean masks)
-TOY_WAITS = 110
+# column): 11 reads back and the lookup sort's 4 boolean masks
+TOY_WAITS = 15
+# and its uploads: the constants, challenges, blinds and the lookup table
+# (80), and the one of each batch inverse
+TOY_UPLOADS = 84
+# sha256 of the toy proofs of seeds 41, 42, 43
+TOY_PROOFS = (
+    "779c150130ef8be0fb2eae5d4debd7324ca3f5cfe675edeaaeffcc77d9fd3b07",
+    "0457e650b88f8fe65bbb246abdf7e8ee933ff46f46c346212520979f11059c44",
+    "518b4e431ed9cf4f6328cc4fdfbe8c02b22514e8169a705b36be466f6eaa3c6c")
 
 
 @pytest.fixture(autouse=True)
@@ -162,7 +176,7 @@ def test_sub_span_without_an_open_span_does_nothing(capsys):
             pass
     assert list(m.phases) == []
     assert timing.COUNTERS == {"host_waits": 0, "host_wait_s": 0.0,
-                               "proves": 0}
+                               "uploads": 0, "proves": 0}
     with m.phase("setup"):
         with span("params"):
             pass
@@ -222,15 +236,27 @@ def test_only_the_outermost_close_synchronizes(monkeypatch):
     assert made and all(ref() is None for ref in made)
 
 
+ZERO = {"host_waits": 0, "host_wait_s": 0.0, "uploads": 0, "proves": 0}
+
+
 def test_reset_counts_clears_the_registry():
     timing.count_wait(0.0, 3)
     timing.COUNTERS["proves"] += 2
+    timing.upload(torch.zeros(4), "cpu")
     with timing.host_wait(2):
         pass
     assert timing.COUNTERS["host_waits"] == 5
+    assert timing.COUNTERS["uploads"] == 1
     kernels.reset_counts()
-    assert timing.COUNTERS == {"host_waits": 0, "host_wait_s": 0.0,
-                               "proves": 0}
+    assert timing.COUNTERS == ZERO
+
+
+def test_reset_counters_clears_uploads():
+    for _ in range(3):
+        timing.upload(torch.zeros(4), "cpu")
+    assert timing.COUNTERS["uploads"] == 3
+    timing.reset_counters()
+    assert timing.COUNTERS == ZERO
 
 
 def test_reads_and_uploads_count_on_every_device():
@@ -238,10 +264,94 @@ def test_reads_and_uploads_count_on_every_device():
     u64.to_ints(t)
     u64.to_u32(t)
     timing.read(t)
-    timing.upload(t, "cpu")
-    assert timing.COUNTERS["host_waits"] == 4
+    assert timing.COUNTERS["host_waits"] == 3     # reads wait
+    assert torch.equal(timing.upload(t, "cpu"), t)
+    assert timing.COUNTERS["host_waits"] == 3     # a small copy does not
+    assert timing.COUNTERS["uploads"] == 1
     u64.to_ints(t.numpy())                  # host arrays: no wait
-    assert timing.COUNTERS["host_waits"] == 4
+    assert timing.COUNTERS["host_waits"] == 3
+    assert timing.COUNTERS["uploads"] == 1
+
+
+@pytest.mark.parametrize("nbytes", [0, 8, 1 << 21, timing.UPLOAD_MAX,
+                                    timing.UPLOAD_MAX + 8, 3 << 22])
+def test_upload_is_an_upload_up_to_the_limit_and_a_wait_above(nbytes):
+    t = torch.arange(nbytes // 8, dtype=torch.int64)
+    out = timing.upload(t, torch.device("cpu"))
+    assert torch.equal(out, t)
+    small = nbytes <= timing.UPLOAD_MAX
+    assert timing.COUNTERS["uploads"] == int(small)
+    assert timing.COUNTERS["host_waits"] == int(not small)
+
+
+class _RingEvent:
+    """A stand-in CUDA event: passed unless the test holds it."""
+
+    held: set = set()
+
+    def __init__(self):
+        self.stream = None
+        self.waited = 0
+
+    def record(self, stream):
+        self.stream = stream
+
+    def query(self):
+        return self not in _RingEvent.held
+
+    def synchronize(self):
+        self.waited += 1
+        _RingEvent.held.discard(self)
+
+
+def test_staging_ring_reuses_a_slot_only_after_its_copies_ran(monkeypatch):
+    """The ring's slots on a stand-in card: copies packed into a slot, the
+    next slot taken when one does not fit or the stream changes, the
+    slot's event recorded on its stream, a slot whose event has not passed
+    waited for (one host wait, counted), and nothing allocated after the
+    ring is made."""
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, pin_memory=False, **kw:
+                        empty(*a, **kw))       # no pinned memory here
+    monkeypatch.setattr(torch.cuda, "Event", _RingEvent)
+    monkeypatch.setattr(_RingEvent, "held", set())
+    streams = {"now": "s0"}
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: streams["now"])
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: streams["now"], raising=False)
+    monkeypatch.setattr(timing, "UPLOAD_MAX", 1024)
+    monkeypatch.setattr(timing, "STAGING_SLOTS", 3)
+    cpu = torch.device("cpu")
+    ring = timing._Staging()
+    buf = ring.buf.data_ptr()
+    assert ring.buf.numel() == 3 * 1024 and len(ring.events) == 3
+
+    def put(n, fill):
+        t = torch.full((n // 8,), fill, dtype=torch.int64)
+        out = ring.put(t, cpu, 0)       # on the CPU: a view of the ring
+        assert torch.equal(out, t)
+        return out
+
+    a = put(512, 1)
+    b = put(8, 2)                       # packed after a, aligned
+    assert (ring.slot, ring.used) == (0, 512 + 256)
+    assert b.data_ptr() - a.data_ptr() == 512
+    c = put(512, 3)                     # does not fit: slot 1
+    assert ring.slot == 1 and ring.events[0].stream == "s0"
+    assert c.data_ptr() == buf + 1024
+    streams["now"] = "s1"
+    put(8, 4)                           # another stream: slot 2
+    assert ring.slot == 2 and ring.events[1].stream == "s0"
+    _RingEvent.held.add(ring.events[0])  # slot 0's copies still queued
+    put(1024, 5)                        # slot 2 is full: back to slot 0,
+    assert ring.slot == 0               # after a wait for its event
+    assert ring.events[0].waited == 1 and ring.events[2].stream == "s1"
+    assert timing.COUNTERS["host_waits"] == 1
+    assert torch.equal(a, torch.full((64,), 5, dtype=torch.int64))
+    put(1024, 6)                        # slot 1 has passed: no wait
+    assert ring.slot == 1 and timing.COUNTERS["host_waits"] == 1
+    assert ring.buf.data_ptr() == buf and len(ring.events) == 3
 
 
 # ---------------------------------------------------------------------------
@@ -295,9 +405,13 @@ def toy_proves():
 def test_toy_prove_counts_the_same_waits(toy_proves):
     _, waits, proofs = toy_proves
     assert [len(p) for p in proofs] == [928] * 3
+    assert tuple(hashlib.sha256(p).hexdigest() for p in proofs) == TOY_PROOFS
     assert [w["proves"] for w in waits] == [1] * 3
     assert waits[1]["host_waits"] == waits[2]["host_waits"] == TOY_WAITS
-    assert waits[0]["host_waits"] > TOY_WAITS
+    assert waits[1]["uploads"] == waits[2]["uploads"] == TOY_UPLOADS
+    # the first fills the key's caches: more uploads, no more waits
+    assert waits[0]["host_waits"] == TOY_WAITS
+    assert waits[0]["uploads"] > TOY_UPLOADS
 
 
 def test_toy_prove_spans(toy_proves):
@@ -349,21 +463,35 @@ WINDOW = [{"prove": 0.2, "prove.quotient.constraints": 0.010,
 
 @pytest.mark.parametrize("name,want", [
     ("host_waits_per_prove", 150.0), ("host_wait_ms", 25.0),
-    ("constraints_ms", 11.0), ("msm_ms", 7.0), ("params_s", 1.5)])
+    ("constraints_ms", 11.0), ("msm_ms", 7.0), ("params_s", 1.5),
+    ("uploads_per_prove", 240.0)])
 def test_readers(name, want):
-    timing.COUNTERS.update(host_waits=300, host_wait_s=0.05, proves=2)
+    timing.COUNTERS.update(host_waits=300, host_wait_s=0.05, uploads=480,
+                           proves=2)
     ctx = {"run": Run(window_phases=WINDOW,
                       setup_phases={"setup": 3.0, "setup.params": 1.5})}
     assert _reader(name)(ctx) == pytest.approx(want)
 
 
 @pytest.mark.parametrize("name", ["host_waits_per_prove", "host_wait_ms",
-                                  "constraints_ms", "msm_ms", "params_s"])
+                                  "constraints_ms", "msm_ms", "params_s",
+                                  "uploads_per_prove"])
 def test_readers_give_none_without_spans_or_proves(name):
-    timing.COUNTERS.update(host_waits=7, host_wait_s=0.01, proves=0)
+    timing.COUNTERS.update(host_waits=7, host_wait_s=0.01, uploads=9,
+                           proves=0)
     ctx = {"run": Run(window_phases=[{"prove": 0.2, "prove.quotient": 0.05}],
                       setup_phases={"setup": 3.0})}
     assert _reader(name)(ctx) is None
+
+
+def test_uploads_reader_gives_none_where_the_program_counts_no_uploads(
+        monkeypatch):
+    """A program whose counters lack ``uploads`` (one older than the
+    staged copies) reads None, whatever it proved."""
+    monkeypatch.setattr(timing, "COUNTERS",
+                        {"host_waits": 684, "host_wait_s": 0.16, "proves": 2})
+    assert _reader("uploads_per_prove")({"run": Run()}) is None
+    assert _reader("host_waits_per_prove")({"run": Run()}) == 342.0
 
 
 # ---------------------------------------------------------------------------
@@ -505,3 +633,77 @@ def test_phase_times_match_synchronized_phases_on_the_card(pipelines,
     off = {label: (free[label], s) for label, s in synced.items()
            if abs(free[label] - s) > max(0.1 * s, 1e-4)}
     assert not off, off
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme,most", [("kzg", 45), ("ipa", 120)])
+def test_a_steady_prove_waits_only_where_the_data_needs_it_on_the_card(
+        pipelines, scheme, most):
+    """Reads, boolean masks and the anchor wait; every copy of a steady
+    prove is an upload, as many in each prove."""
+    _, prove = pipelines(scheme)
+    got = []
+    for seed in (4, 5):
+        kernels.reset_counts()
+        prove(seed)
+        got.append(dict(timing.COUNTERS))
+    print(scheme, got)
+    assert [c["proves"] for c in got] == [1, 1]
+    assert all(c["host_waits"] <= most for c in got), got
+    assert got[0]["uploads"] == got[1]["uploads"] > 0, got
+
+
+def _pinned():
+    """torch's pinned allocations so far (where this torch counts them),
+    and each staging ring's buffer."""
+    stats = (torch.cuda.host_memory_stats()
+             if hasattr(torch.cuda, "host_memory_stats") else {})
+    return (stats.get("num_host_alloc", stats.get("allocations.allocated")),
+            {i: (r.buf.data_ptr(), r.buf.numel())
+             for i, r in timing._STAGING.items()})
+
+
+@pytest.mark.cuda
+def test_ten_steady_proves_allocate_no_pinned_memory(pipelines):
+    _, prove = pipelines("kzg")
+    before = _pinned()
+    assert before[1], "the warm-up proves made no staging ring"
+    for seed in range(20, 30):
+        prove(seed)
+    assert _pinned() == before
+
+
+@pytest.mark.cuda
+def test_uploads_read_at_once_behind_a_busy_stream_on_the_card():
+    """A spin kernel holds the stream while 3 rings' worth of 2 MiB
+    uploads are made, each read at once by kernel 2 (x + 0) and its host
+    source overwritten: every sum equals the values uploaded, and the ring
+    waited before it wrote a slot whose copies had not run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from zkodst_tpu_torch.ops.field import FR
+
+    dev = torch.device("cuda")
+    n = (1 << 21) // 32                        # 2 MiB of elements
+    count = 3 * timing.STAGING_SLOTS * (timing.UPLOAD_MAX >> 21) // 2
+    rng = np.random.default_rng(20)
+    want = [rng.integers(0, 1 << 32, (n, 8), dtype=np.uint64)
+            .astype(np.uint32) for _ in range(count)]
+    for a in want:
+        a[:, 7] &= 0x0FFFFFFF                  # below p: a + 0 = a
+    zero = torch.zeros(8, dtype=torch.int32, device=dev)
+    FR.add(zero[None], zero)                   # built and loaded
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    torch.cuda._sleep(400_000_000)             # ~0.2 s of spin
+    sums = []
+    for a in want:
+        src = torch.from_numpy(a.view(np.int32).copy())
+        sums.append(FR.add(timing.upload(src, dev), zero))
+        src.fill_(-1)
+    torch.cuda.synchronize()
+    for a, s in zip(want, sums):
+        assert np.array_equal(s.cpu().numpy().view(np.uint32), a)
+    assert timing.COUNTERS["uploads"] == count
+    assert timing.COUNTERS["host_waits"] >= 1
+

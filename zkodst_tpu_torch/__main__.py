@@ -140,12 +140,13 @@ def cmd_vectors(args) -> int:
     from .kernels import blake2 as kblake2
     from .ops import blake2, u64
     from .utils.device import resolve
+    from .utils.timing import upload
 
     dev = resolve(args.device)
 
     def pairs(words):
-        return torch.from_numpy(u64.from_ints(words).astype(np.int64)
-                                ).to(dev)[None]
+        return upload(torch.from_numpy(u64.from_ints(words).astype(np.int64)),
+                      dev)[None]
 
     bad = 0
     for v in blake2.EIP152_VECTORS:
@@ -161,7 +162,7 @@ def cmd_vectors(args) -> int:
         else:
             rounds, h, m, t, f = blake2.eip152_decode(v["input"])
             out = kblake2.blake2f_compress(pairs(h), pairs(m), pairs(t),
-                                           torch.tensor([f], device=dev),
+                                           upload(torch.tensor([f]), dev),
                                            rounds)
             got = b"".join(int(x).to_bytes(8, "little")
                            for x in u64.to_ints(out[0])).hex()

@@ -44,7 +44,7 @@ from .circuit import mock
 from .kernels import blake2 as kblake2
 from .ops import blake2, u64
 from .utils.device import resolve
-from .utils.timing import profiler_trace
+from .utils.timing import profiler_trace, upload
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tests", "golden")
@@ -91,7 +91,7 @@ def eip152_batch(dev: torch.device, batch: int):
 
     def pairs(words, n):
         one = torch.from_numpy(u64.from_ints(words).astype(np.int64))
-        return one.to(dev).expand(batch, n, 2).contiguous()
+        return upload(one, dev).expand(batch, n, 2).contiguous()
 
     return (pairs(v["h"], 8), pairs(v["m"], 16), pairs(v["t"], 2),
             torch.ones((batch,), dtype=torch.bool, device=dev))

@@ -691,7 +691,7 @@ def _placement(lay: _Layout, n: int, dev) -> kblake2.Placement:
         cby[col].append((row, val))
 
     def tensor(x, dtype=torch.int64):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+        return upload(torch.as_tensor(np.asarray(x), dtype=dtype), dev)
 
     return kblake2.Placement(
         columns=tuple(ADVICE), n=n, rows=lay.r, pub_rows=R_PUB,

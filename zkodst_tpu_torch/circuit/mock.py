@@ -20,6 +20,7 @@ import torch
 
 from ..ops import u64
 from ..utils.device import resolve
+from ..utils.timing import upload
 from .expr import eval_expr
 from .ir import CircuitDef, u64_cols_to_field
 
@@ -49,8 +50,8 @@ def _gate_masks(circ: CircuitDef, cols: Dict[str, object],
     def pairs(col):
         if isinstance(col, torch.Tensor):
             return col.to(device=device, dtype=torch.int64)
-        return torch.from_numpy(u64.to_u32(col).astype(np.int64)
-                                ).to(device)
+        return upload(torch.from_numpy(u64.to_u32(col).astype(np.int64)),
+                      device)
 
     fcols = dict(zip(names, u64_cols_to_field(
         F, torch.stack([pairs(cols[nm]) for nm in names]))))

@@ -143,10 +143,12 @@ class Curve:
         return f"Curve({self.name})"
 
     def identity(self, shape=(), device="cpu") -> torch.Tensor:
-        """(..., 3, 8) identity points (0 : 1 : 0)."""
-        z = np.zeros(tuple(shape) + (3, 8), np.uint32)
-        z[..., 1, :] = self.F.ONE
-        return self.F.const(z, device)
+        """(..., 3, 8) identity points (0 : 1 : 0), filled on `device`:
+        one 32-byte upload, whatever the shape."""
+        out = torch.zeros(tuple(shape) + (3, 8), dtype=torch.int32,
+                          device=device)
+        out[..., 1, :] = self.F.const(self.F.ONE, device)
+        return out
 
     def from_affine_ints(self, pts, device="cpu") -> torch.Tensor:
         """Affine (x, y) int tuples or None -> (N, 3, 8) projective."""

@@ -74,7 +74,7 @@ def from_limbs16(a16, device="cpu") -> torch.Tensor:
     int32 tensor of the same values."""
     a = np.asarray(a16).astype(np.uint32)
     a32 = a[..., 0::2] | (a[..., 1::2] << np.uint32(16))
-    return torch.from_numpy(a32.view(np.int32).copy()).to(device)
+    return timing.upload(torch.from_numpy(a32.view(np.int32).copy()), device)
 
 
 def to_limbs16(t: torch.Tensor) -> np.ndarray:
@@ -189,7 +189,7 @@ class Field:
     @staticmethod
     def const(limbs: np.ndarray, device="cpu") -> torch.Tensor:
         """uint32 limb array -> int32 tensor on `device` (a copy from the
-        host: one host wait, counted)."""
+        host through :func:`timing.upload`)."""
         a = np.ascontiguousarray(np.asarray(limbs, np.uint32))
         return timing.upload(torch.from_numpy(a.view(np.int32).copy()),
                              device)
@@ -234,14 +234,12 @@ class Field:
         and the total are views of it."""
         n = a.shape[0]
         N = _scan_length(n, CHAIN_W)
-        one = torch.from_numpy(self.ONE.view(np.int32))
+        one = self.const(self.ONE, a.device)
         pre = torch.empty((N + 1, L), dtype=torch.int32, device=a.device)
-        with timing.host_wait():                # a copy from the host
-            pre[0] = one                        # pre[i] = a[0] · … · a[i−1]
+        pre[0] = one                            # pre[i] = a[0] · … · a[i−1]
         self._scan_into(a, pre[1:], False, CHAIN_W)
         suf = torch.empty((N + 1, L), dtype=torch.int32, device=a.device)
-        with timing.host_wait():
-            suf[N] = one                        # suf[i] = a[i] · … · a[n−1]
+        suf[N] = one                            # suf[i] = a[i] · … · a[n−1]
         self._scan_into(a, suf[:N], True, CHAIN_W)
         return self.mul(self.mul(pre[:n], suf[1:n + 1]), self.inv(pre[n]))
 

@@ -35,7 +35,7 @@ import torch
 
 from ..kernels.ec import chain_scan_local, ec_add, scale_reduce, \
     seg_scan_tiles, seg_step
-from ..utils.timing import host_wait, span
+from ..utils.timing import span
 from .curve import BN254, Curve, pack, unpack
 from .field import FR, MASK32
 
@@ -224,8 +224,7 @@ def msm(points: torch.Tensor, scalars: torch.Tensor, c: int = 8,
 def to_normal(mont: torch.Tensor) -> torch.Tensor:
     """Fr Montgomery limbs -> normal form (Montgomery multiply by raw 1)."""
     one_raw = torch.zeros(8, dtype=torch.int32, device=mont.device)
-    with host_wait():                       # a scalar copied from the host
-        one_raw[0] = 1
+    one_raw[:1].fill_(1)                    # a fill on the device
     return FR.mul(mont, one_raw.expand_as(mont))
 
 

@@ -66,7 +66,7 @@ from ..ops.pyfield import FQ as PFQ
 from ..ops.pyfield import FR as PFR
 from ..ops.pyfield import PALLAS_BASE, PF, VESTA_BASE
 from ..utils.device import resolve
-from ..utils.timing import host_wait, span, upload
+from ..utils.timing import span, upload
 from . import shplonk
 
 # Pippenger window of the MSMs, on either curve (the group elements do not
@@ -229,7 +229,7 @@ def generators(cfg: _CurveCfg, msgs: Sequence[bytes],
     out = torch.empty((m, 3, 8), dtype=torch.int32, device=device)
     r2, one = F.const(F.R2, device), F.const(F.ONE, device)
     raw1 = torch.zeros(8, dtype=torch.int32, device=device)
-    raw1[0] = 1
+    raw1[:1].fill_(1)
     bk = F.from_ints(cfg.dev.b, device)
     todo = np.arange(m)
     ctr = 0
@@ -241,12 +241,12 @@ def generators(cfg: _CurveCfg, msgs: Sequence[bytes],
         y = _sqrt(cfg, rhs)
         ok = torch.eq(F.mul(y, y), rhs).all(dim=-1).reshape(-1, C).cpu()
         has = ok.any(dim=1).numpy()
-        pick = (torch.arange(ok.shape[0]) * C + ok.to(torch.int8)
-                .argmax(dim=1))[torch.from_numpy(has)].to(device)
+        pick = upload((torch.arange(ok.shape[0]) * C + ok.to(torch.int8)
+                       .argmax(dim=1))[torch.from_numpy(has)], device)
         xs, ys = x[pick], y[pick]
         odd = (F.mul(ys, raw1)[:, 0] & 1).bool()
         ys = torch.where(odd[:, None], F.neg(ys), ys)
-        out[torch.from_numpy(todo[has]).to(device)] = torch.stack(
+        out[upload(torch.from_numpy(todo[has]), device)] = torch.stack(
             [xs, ys, one.expand_as(xs)], dim=1)
         todo = todo[~has]
         ctr += C
@@ -331,8 +331,7 @@ def _rand_scalar(rng=None, p: int = PFR.p) -> int:
 def _normal(F: Field, mont: torch.Tensor) -> torch.Tensor:
     """Montgomery limbs -> normal form (a product with raw 1, kernel 1)."""
     raw1 = torch.zeros(8, dtype=torch.int32, device=mont.device)
-    with host_wait():                       # a scalar copied from the host
-        raw1[0] = 1
+    raw1[:1].fill_(1)                       # a fill on the device
     return F.mul(mont, raw1)
 
 

@@ -26,6 +26,7 @@ import torch
 from ..circuit.ir import CircuitDef, u64_cols_to_field
 from ..ops.field import FR, from_limbs16, to_limbs16
 from ..ops.pyfield import FR as PFR
+from ..utils.timing import upload
 from . import pcs, srs
 from .domain import DELTA, Domain
 from .pcs import Params
@@ -185,14 +186,14 @@ def _key(params: Params, circ: CircuitDef, sigma_maps) -> ProvingKey:
     for d in range(1, len(perm_cols) + 1):
         assert pow(DELTA, d, PFR.p) != 1, "DELTA order too small"
     names = sorted(circ.fixed)
-    fixed = u64_cols_to_field(FR, torch.from_numpy(np.stack(
-        [circ.fixed[nm] for nm in names]).astype(np.int64)).to(dev))
+    fixed = u64_cols_to_field(FR, upload(torch.from_numpy(np.stack(
+        [circ.fixed[nm] for nm in names]).astype(np.int64)), dev))
     if sigma_maps is None:
         sigma_maps = _build_sigma(circ, perm_cols)
     delta_pows = FR.from_ints([pow(DELTA, i, PFR.p)
                                for i in range(len(perm_cols))], dev)
-    cols, rows = (torch.from_numpy(np.stack([m[i] for m in sigma_maps])
-                                   .astype(np.int64)).to(dev)
+    cols, rows = (upload(torch.from_numpy(np.stack([m[i] for m in sigma_maps])
+                                          .astype(np.int64)), dev)
                   for i in (0, 1))
     sigma = FR.mul(delta_pows[cols], roots[rows])
     vk = VerifyingKey(k=circ.k, fixed_commitments={}, sigma_commitments=[],

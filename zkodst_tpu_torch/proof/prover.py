@@ -497,8 +497,8 @@ def _entropy(mesh, device) -> bytes:
     ent = secrets.token_bytes(32)
     if mesh is None:
         return ent
-    got = mesh.broadcast(torch.tensor(list(ent), dtype=torch.uint8,
-                                      device=device))
+    got = mesh.broadcast(upload(torch.tensor(list(ent), dtype=torch.uint8),
+                                device))
     return bytes(got.cpu().tolist())
 
 

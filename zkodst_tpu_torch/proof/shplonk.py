@@ -121,7 +121,7 @@ def _l_pass(evs, cks, constk, ztzk, h_ev, roots, zk):
 
 def point_mask(claims: List[Claim], S: int, device) -> torch.Tensor:
     """(C, S) bool: point j of claim i exists (the padded point sets'
-    mask), uploaded: one host wait."""
+    mask), uploaded (:func:`timing.upload`)."""
     return upload(torch.tensor([[j < len(cl.points) for j in range(S)]
                                 for cl in claims]), device)
 

@@ -23,6 +23,7 @@ from ..ops.field import from_limbs16, to_limbs16
 from ..ops.pyfield import FR
 from ..parallel.msm_sharded import msm_many_sharded_mont
 from ..utils.device import resolve
+from ..utils.timing import upload
 from .domain import Domain
 
 # fixed-base ladder: W windows of C bits cover 256-bit scalars
@@ -69,7 +70,7 @@ def _window_table(device) -> torch.Tensor:
         rows.append(curve.from_affine_ints(row))
         for _ in range(C):
             pw = pycurve.G1.add(pw, pw)
-    return torch.stack(rows).to(device)
+    return upload(torch.stack(rows), device)
 
 
 def _nibbles(scalars: List[int], device) -> torch.Tensor:
@@ -77,7 +78,7 @@ def _nibbles(scalars: List[int], device) -> torch.Tensor:
     raw = b"".join(s.to_bytes(32, "little") for s in scalars)
     b = np.frombuffer(raw, np.uint8).reshape(len(scalars), 32)
     d = np.stack([b & 0xF, b >> 4], axis=-1).reshape(len(scalars), W)
-    return torch.from_numpy(d.T.astype(np.int64)).to(device)
+    return upload(torch.from_numpy(d.T.astype(np.int64)), device)
 
 
 def _fixed_base(tbl: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:

@@ -26,10 +26,12 @@ host close and the device's completion of its work.
 
 :data:`COUNTERS` counts, process-wide, the host's waits for the device
 (``host_waits``, and the seconds they blocked, ``host_wait_s``: reads
-back, copies from the host, synchronizing ops and the outermost spans'
-waits) and the outermost ``prove`` spans closed (``proves``). A wait is
-counted on every device, so that CPU runs count what the card waits.
-``kernels.reset_counts()`` clears them with the launch counts.
+back, copies from the host larger than :data:`UPLOAD_MAX`, synchronizing
+ops and the outermost spans' waits), the copies from the host that do
+not wait (``uploads``, :func:`upload`) and the outermost ``prove`` spans
+closed (``proves``). Both are counted on every device, so that CPU runs
+count what the card does. ``kernels.reset_counts()`` clears them with the
+launch counts.
 """
 
 from __future__ import annotations
@@ -50,13 +52,19 @@ SETUP = "setup"
 PROVE = "prove"
 VERIFY = "verify"
 KEEP_SPANS = 1 << 15     # a span log holds 32,768 to 65,536 of the newest
+# bytes: a copy from the host up to this size is staged and does not wait.
+# A prove's largest are 2 MiB (an (n, 2) int64 column at k = 17: the
+# lookup tables, the instance columns); set-up's SRS tables, generator
+# candidates and key columns are larger and stay synchronous
+UPLOAD_MAX = 1 << 22
+STAGING_SLOTS = 16       # slots of UPLOAD_MAX bytes in a card's ring
 
 COUNTERS: Dict[str, float] = {"host_waits": 0, "host_wait_s": 0.0,
-                              "proves": 0}
+                              "uploads": 0, "proves": 0}
 
 
 def reset_counters() -> None:
-    COUNTERS.update(host_waits=0, host_wait_s=0.0, proves=0)
+    COUNTERS.update(host_waits=0, host_wait_s=0.0, uploads=0, proves=0)
 
 
 def count_wait(t0: float, n: int = 1) -> None:
@@ -85,12 +93,85 @@ def read(t: torch.Tensor) -> np.ndarray:
 
 
 def upload(t: torch.Tensor, device) -> torch.Tensor:
-    """Host tensor `t` copied to `device`; the copy from pageable memory
-    drains the stream first: one host wait, counted."""
-    t0 = time.perf_counter()
-    out = t.to(device)
-    count_wait(t0)
-    return out
+    """Host tensor `t` on `device`, the one way a host tensor reaches the
+    card. Up to :data:`UPLOAD_MAX` bytes it is one upload, counted: on the
+    card `t` is copied into the device's :class:`_Staging` ring of pinned
+    memory and from there enqueued on the current stream, so the host
+    does not wait. A larger copy is a plain ``t.to(device)``, which from
+    pageable memory drains the stream first: one host wait, counted."""
+    device = torch.device(device)
+    if t.nbytes > UPLOAD_MAX:
+        t0 = time.perf_counter()
+        out = t.to(device)
+        count_wait(t0)
+        return out
+    COUNTERS["uploads"] += 1
+    if device.type != "cuda":
+        return t.to(device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    ring = _STAGING.get(index)
+    if ring is None:
+        ring = _STAGING[index] = _Staging()
+    return ring.put(t, device, index)
+
+
+class _Staging:
+    """A ring of pinned host memory for the copies to one card, allocated
+    at its first upload and never grown: STAGING_SLOTS slots of
+    UPLOAD_MAX bytes, each with its own CUDA event (not torch's caching
+    host allocator, whose pool grows with the copies in flight). Copies
+    are packed into the open slot. When one does not fit, or the current
+    stream changes, the slot's event is recorded on the stream its copies
+    went to, and the next slot opens once its event has passed: a slot is
+    written again only after the copies from it have run. A k = 17 prove
+    stages about 8.5 MB (its four lookup tables, then small constants),
+    an eighth of the ring, and ends in a synchronize, so in a steady run
+    the event has passed; where it has not, the wait is counted."""
+
+    ALIGN = 256
+
+    def __init__(self):
+        self.buf = torch.empty(STAGING_SLOTS * UPLOAD_MAX, dtype=torch.uint8,
+                               pin_memory=True)
+        self.host = self.buf.numpy()            # the same bytes
+        self.events = [torch.cuda.Event() for _ in range(STAGING_SLOTS)]
+        self.slot = self.used = 0
+        self.handle = self.stream = None        # the open slot's stream
+
+    def put(self, t: torch.Tensor, device: torch.device,
+            index: int) -> torch.Tensor:
+        # numpy's copy and views, a raw stream handle: torch's copy_,
+        # views and Stream objects cost several times their host time.
+        # The copy's source is a numpy view: torch does not know it is
+        # pinned (the driver does, so the copy is async), and the ring's
+        # events, not torch's, keep the bytes until the copy has run
+        src = t.numpy()
+        n = src.nbytes
+        handle = torch._C._cuda_getCurrentRawStream(index)
+        if self.used + n > UPLOAD_MAX or handle != self.handle:
+            if self.used:
+                self._next_slot()
+            self.handle = handle
+            self.stream = torch.cuda.current_stream(device)
+        at = self.slot * UPLOAD_MAX + self.used
+        self.used += -(-n // self.ALIGN) * self.ALIGN
+        staged = self.host[at:at + n].view(src.dtype).reshape(src.shape)
+        np.copyto(staged, src)
+        return torch.from_numpy(staged).to(device, non_blocking=True)
+
+    def _next_slot(self) -> None:
+        self.events[self.slot].record(self.stream)
+        self.slot = (self.slot + 1) % STAGING_SLOTS
+        self.used = 0
+        ev = self.events[self.slot]
+        if not ev.query():          # (one never recorded has passed)
+            t0 = time.perf_counter()
+            ev.synchronize()
+            count_wait(t0)
+
+
+_STAGING: Dict[int, _Staging] = {}      # device index -> its ring
 
 
 @dataclass
