@@ -9,8 +9,9 @@ stand-in card); ``kernels.reset_counts()`` clears the counters; a copy
 from the host counts as an upload up to ``timing.UPLOAD_MAX`` bytes and
 as a wait above it; the staging ring's slots on a stand-in card; a toy
 prove counts the same host waits and uploads each time, the pinned number
-of its read, upload and mask sites, and its proofs' bytes are pinned; the
-six readers on a stand-in run.
+of its read, upload and mask sites, and its proofs' bytes are pinned; one
+``.ntt`` span a transform with its counts, the other spans' labels as
+before; the readers on a stand-in run.
 
 Card (``cuda``; skips without one): at k = 17 a warm KZG and a warm IPA
 prove count as many host waits as the sync debug mode reports
@@ -18,8 +19,10 @@ synchronizing ops (plus the outermost span's wait), hold no CUDA event
 once returned, and each phase's median over 30 warm proves lies within
 10% (or 0.1 ms) of its median over 30 proves that synchronize at each
 phase's end, in turns (a phase's time is bimodal from prove to prove);
-a steady prove waits at most 45 (KZG) or 120 (IPA) times; 10 steady
-proves allocate no pinned memory; uploads read at once by a kernel, and
+a steady prove waits at most 45 (KZG) or 120 (IPA) times; its ``.ntt``
+spans made the launches their counts say, each with a device time, and
+read below 100% of the frozen NTT roofline; 10 steady proves allocate no
+pinned memory; uploads read at once by a kernel, and
 the ring's slots reused, while a spin kernel holds the stream, give the
 uploaded values. This file imports no JAX; on a card machine:
 ``PYTHONPATH=. python -m pytest --noconftest tests/test_torch_spans.py``.
@@ -58,9 +61,40 @@ CACHE = os.path.join(REPO, "tests", "golden", "dryrun_cache")
 # host waits of one warm toy prove (k = 5, one lookup, no instance
 # column): 11 reads back and the lookup sort's 4 boolean masks
 TOY_WAITS = 15
-# and its uploads: the constants, challenges, blinds and the lookup table
-# (80), and the one of each batch inverse
-TOY_UPLOADS = 84
+# and its uploads: the constants, challenges and blinds (79), and the one
+# of each batch inverse (the lookup table's key is uploaded once, with the
+# key's caches, at the first prove)
+TOY_UPLOADS = 83
+# the spans of a warm toy prove other than its transforms', as they were
+# before the transforms had spans of their own
+TOY_LABELS = (
+    "prove.init", "prove.lookup_sort", "prove.advice_commit.prep",
+    "prove.advice_commit.msm", "prove.advice_commit.msm",
+    "prove.advice_commit", "prove.intt", "prove.lookup_permute.columns",
+    "prove.lookup_permute.intt", "prove.lookup_permute.msm",
+    "prove.lookup_permute", "prove.grand_products_commit.perm_z",
+    "prove.grand_products_commit.lookup_z",
+    "prove.grand_products_commit.intt", "prove.grand_products_commit.msm",
+    "prove.grand_products_commit", "prove.quotient.extend",
+    "prove.quotient.constraints", "prove.quotient.h", "prove.quotient.msm",
+    "prove.quotient", "prove.claims", "prove.evaluations.grid",
+    "prove.evaluations.read", "prove.evaluations", "prove.claims",
+    "prove.multiopen.h_pass", "prove.multiopen.msm",
+    "prove.multiopen.l_pass", "prove.multiopen.msm", "prove.multiopen",
+    "prove")
+# and its transforms' spans, (label, batch, n, launches) in the order
+# they closed: at k = 5 a transform of 32 points is one tail pass, one of
+# 128 (the extended coset) too; iNTTs add their ÷ n, coset transforms
+# their scaling by ζ^i
+TOY_NTT_SPANS = (
+    ("prove.intt.ntt", 2, 32, 2),                      # a, b
+    ("prove.lookup_permute.intt.ntt", 2, 32, 2),       # A′, S′
+    ("prove.grand_products_commit.intt.ntt", 2, 32, 2),  # perm Z, lookup Z
+    ("prove.quotient.extend.ntt", 6, 128, 2),          # coset NTT
+    ("prove.quotient.h.ntt", 1, 128, 3),               # coset iNTT
+    ("prove.quotient.h.ntt", 4, 32, 1),                # h's 4 pieces
+    ("prove.multiopen.h_pass.ntt", 1, 32, 2),
+    ("prove.multiopen.l_pass.ntt", 1, 32, 2))
 # sha256 of the toy proofs of seeds 41, 42, 43
 TOY_PROOFS = (
     "779c150130ef8be0fb2eae5d4debd7324ca3f5cfe675edeaaeffcc77d9fd3b07",
@@ -443,6 +477,58 @@ def test_toy_prove_spans(toy_proves):
     assert by["prove.quotient.msm"].counts["points"] > 0
 
 
+def test_toy_prove_ntt_spans(toy_proves):
+    """One ``.ntt`` span a transform, under the span that made it, with the
+    batch, n and launches as counts; the other spans as they were."""
+    m, _, _ = toy_proves
+    ids = sorted({p.prove for p in m.phases})
+    one = [p for p in m.phases if p.prove == ids[1]]
+    ntts = [p for p in one if p.label.endswith(".ntt")]
+    assert tuple((p.label, p.counts["batch"], p.counts["n"],
+                  p.counts["launches"]) for p in ntts) == TOY_NTT_SPANS
+    assert all(set(p.counts) == {"batch", "n", "launches"} for p in ntts)
+    assert all(p.parent == p.label[:-len(".ntt")] for p in ntts)
+    assert tuple(p.label for p in one if p not in ntts) == TOY_LABELS
+
+
+def test_ntt_span_per_outermost_transform(monkeypatch):
+    """Each call of ntt, intt, coset_ntt and coset_intt, through the
+    domain, opens one ``<parent>.ntt`` span, whose inner transform opens
+    none; with no span open none is opened."""
+    from zkodst_tpu_torch.ops import ntt as nttmod
+    from zkodst_tpu_torch.ops.field import FR
+    from zkodst_tpu_torch.proof.domain import Domain
+
+    inner = []
+    plain = nttmod._ntt
+    monkeypatch.setattr(nttmod, "_ntt",
+                        lambda *a: inner.append(1) or plain(*a))
+    dom = Domain(4)
+    cols = FR.from_ints([[3 * i + j for i in range(16)] for j in range(3)],
+                        "cpu")
+    m = Metrics(echo=False)
+    with m.phase("prove"):
+        with span("a"):
+            coeffs = dom.intt(cols)
+            ext = dom.coeff_to_extended(coeffs)
+        with span("b"):
+            back = dom.extended_to_coeff(ext)
+            evals = dom.ntt(back[:, :16])
+    assert FR.to_ints(evals).tolist() == FR.to_ints(cols).tolist()
+    got = [(p.label, p.counts) for p in m.phases if p.counts]
+    assert got == [
+        ("prove.a.ntt", {"batch": 3, "n": 16, "launches": 2}),
+        ("prove.a.ntt", {"batch": 3, "n": 64, "launches": 2}),
+        ("prove.b.ntt", {"batch": 3, "n": 64, "launches": 3}),
+        ("prove.b.ntt", {"batch": 3, "n": 16, "launches": 1})]
+    assert len(inner) == 4
+    # kept for the benchmark's readers with the MSMs' spans
+    assert list(timing.LAYER_SPANS) == [p for p in m.phases if p.counts]
+    n = len(m.phases)
+    dom.ntt(cols)
+    assert len(m.phases) == n and len(inner) == 5
+
+
 # ---------------------------------------------------------------------------
 # the benchmark's readers
 # ---------------------------------------------------------------------------
@@ -651,6 +737,29 @@ def test_a_steady_prove_waits_only_where_the_data_needs_it_on_the_card(
     assert [c["proves"] for c in got] == [1, 1]
     assert all(c["host_waits"] <= most for c in got), got
     assert got[0]["uploads"] == got[1]["uploads"] > 0, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["kzg", "ipa"])
+def test_ntt_spans_count_the_launches_they_make_on_the_card(pipelines,
+                                                            scheme):
+    """Each ``.ntt`` span of a steady prove made as many launches as its
+    counts say, has a device time, and reads below its frozen roofline."""
+    from zkbench.roofline import ntt as ntt_model, peaks
+
+    pipe, prove = pipelines(scheme)
+    kernels.reset_counts()
+    prove(6)
+    ntts = [p for p in pipe.metrics.phases
+            if p.prove == pipe.metrics.phases[-1].prove
+            and p.label.endswith(".ntt")]
+    assert len(ntts) >= 6
+    assert [p.counts["launches"] for p in ntts] == [p.launches for p in ntts]
+    assert all(p.device_s and p.device_s > 0 for p in ntts)
+    assert all(any(p is q for q in timing.LAYER_SPANS) for p in ntts)
+    pct = ntt_model.roofline_pct(ntts, peaks.card())
+    print(scheme, [(p.label, p.counts, p.device_s) for p in ntts], pct)
+    assert pct is not None and 0 < pct < 100
 
 
 def _pinned():

@@ -579,9 +579,12 @@ class Blake2fCircuit:
         self.rows_per_inst = lay.r
         self.ncells = lay.nidx
         usable = n - BLINDING_ROWS - 1
-        assert lay.r * n_inst <= usable, \
-            f"{n_inst} instances × {lay.r} rows > usable {usable}"
-        assert (1 << 16) <= n, "spread table needs k >= 17"
+        if lay.r * n_inst > usable:
+            raise ValueError(f"{n_inst} instances × {lay.r} rows > usable "
+                             f"{usable}: at most {usable // lay.r} at "
+                             f"k = {k}")
+        if n < 1 << 16:
+            raise ValueError("spread table needs k >= 17")
         self._lay = lay
 
         fixed: Dict[str, np.ndarray] = {}

@@ -305,6 +305,20 @@ def chunk_tables(pk: ProvingKey):
     return cache["chunk_tables"]
 
 
+def table_keys(pk: ProvingKey) -> Dict[str, torch.Tensor]:
+    """The lookup sort's key of each table: the low word of its first
+    column, (n,) on the key's device. A table is a fixed column, so it is
+    uploaded once per key (16 MiB at k = 20, above ``UPLOAD_MAX``), not
+    once per prove."""
+    cache = pk.prover_cache
+    if "table_keys" not in cache:
+        circ, dev = pk.vk.circ, pk.roots.device
+        cache["table_keys"] = {
+            nm: _u64_tensor(circ.fixed[nm], dev)[:, 0]
+            for nm in {lk.table_cols[0] for lk in circ.lookups}}
+    return cache["table_keys"]
+
+
 # ---------------------------------------------------------------------------
 # the transcript's public inputs
 # ---------------------------------------------------------------------------
@@ -573,11 +587,11 @@ class Prover:
         # the lookup row permutations depend only on the witness
         u = circ.usable_rows
         with span("lookup_sort"):
+            keys = table_keys(self.pk)
             self.lk_perms = {
                 lk.name: _lookup_perm_indices(
                     self.advice_u64[lk.input_cols[0]][:, 0],
-                    _u64_tensor(circ.fixed[lk.table_cols[0]],
-                                self.dev)[:, 0], u)
+                    keys[lk.table_cols[0]], u)
                 for lk in circ.lookups}
         adv, adv_coeffs = advice_phase(self.params, circ, self.advice_u64,
                                        self.rng, self.tw, self.metrics,

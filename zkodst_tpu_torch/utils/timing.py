@@ -30,12 +30,15 @@ back, copies from the host larger than :data:`UPLOAD_MAX`, synchronizing
 ops and the outermost spans' waits), the copies from the host that do
 not wait (``uploads``, :func:`upload`) and the outermost ``prove`` spans
 closed (``proves``). Both are counted on every device, so that CPU runs
-count what the card does. ``kernels.reset_counts()`` clears them with the
-launch counts.
+count what the card does. :data:`LAYER_SPANS` keeps, beside them, the
+spans that carry counts (an MSM's, a transform's), for readers that have
+no ``Metrics``. ``kernels.reset_counts()`` clears them with the launch
+counts.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import contextvars
 import itertools
@@ -53,18 +56,25 @@ PROVE = "prove"
 VERIFY = "verify"
 KEEP_SPANS = 1 << 15     # a span log holds 32,768 to 65,536 of the newest
 # bytes: a copy from the host up to this size is staged and does not wait.
-# A prove's largest are 2 MiB (an (n, 2) int64 column at k = 17: the
-# lookup tables, the instance columns); set-up's SRS tables, generator
-# candidates and key columns are larger and stay synchronous
+# A steady prove's are small (constants, challenges, blinds, its inputs);
+# set-up's SRS tables, generator candidates and key columns are larger and
+# stay synchronous, as do the lookup tables' keys from k = 19 on (an
+# (n, 2) int64 column, uploaded once per key at its first prove)
 UPLOAD_MAX = 1 << 22
 STAGING_SLOTS = 16       # slots of UPLOAD_MAX bytes in a card's ring
 
 COUNTERS: Dict[str, float] = {"host_waits": 0, "host_wait_s": 0.0,
                               "uploads": 0, "proves": 0}
+# the newest KEEP_SPANS spans that carry counts (each outermost MSM's and
+# transform's: ``.msm``, ``.ntt``), closed since the counters' last
+# reset, process-wide as COUNTERS; a span's device_s is filled in when
+# its outermost span closes
+LAYER_SPANS: collections.deque = collections.deque(maxlen=KEEP_SPANS)
 
 
 def reset_counters() -> None:
     COUNTERS.update(host_waits=0, host_wait_s=0.0, uploads=0, proves=0)
+    LAYER_SPANS.clear()
 
 
 def count_wait(t0: float, n: int = 1) -> None:
@@ -124,10 +134,10 @@ class _Staging:
     are packed into the open slot. When one does not fit, or the current
     stream changes, the slot's event is recorded on the stream its copies
     went to, and the next slot opens once its event has passed: a slot is
-    written again only after the copies from it have run. A k = 17 prove
-    stages about 8.5 MB (its four lookup tables, then small constants),
-    an eighth of the ring, and ends in a synchronize, so in a steady run
-    the event has passed; where it has not, the wait is counted."""
+    written again only after the copies from it have run. A steady prove
+    stages well under a slot (its constants, challenges, blinds and
+    inputs) and ends in a synchronize, so in a steady run the event has
+    passed; where it has not, the wait is counted."""
 
     ALIGN = 256
 
@@ -184,7 +194,7 @@ class Phase:
     prove: int = 0                      # id of its outermost span
     launches: int = 0
     waits: int = 0
-    counts: Optional[Dict[str, int]] = None     # an MSM's sizes
+    counts: Optional[Dict[str, int]] = None     # an MSM's or NTT's sizes
 
 
 class _Span:
@@ -262,6 +272,8 @@ def _opened(metrics, label: str, parent: Optional[_Span],
             _resolve(sp)
         sp.phase.waits = int(COUNTERS["host_waits"] - sp.waits0)
         metrics.phases.append(sp.phase)
+        if counts is not None:
+            LAYER_SPANS.append(sp.phase)
 
 
 def _resolve(root: _Span) -> None:
