@@ -484,12 +484,17 @@ def work(name, args, kw=None):
                 + 2 * POINT_BYTES * moved, EC_ADD_OPS * adds)
     if name in ("chain_scan_local", "seg_scan_tiles"):
         f = args[1].bool().clone()
-        if name == "chain_scan_local":
-            f[:, :args[2]] = True               # chain heads
-        else:
+        B, n = f.shape
+        index = (kw or {}).get("index")
+        if name != "chain_scan_local":
             f[:, 0] = True                      # the tile's first lane
+        elif index is None:
+            f[:, :args[2]] = True               # chain heads
+        else:                                   # gathered: sorted order,
+            f[:, ::n // args[2]] = True         # each point's index read
         adds = int((~f).sum())
-        return (2 * POINT_BYTES + 1) * B * n, EC_ADD_OPS * adds
+        per = 2 * POINT_BYTES + 1 + (8 if index is not None else 0)
+        return per * B * n, EC_ADD_OPS * adds
     if name == "scale_reduce":         # c doublings and an add a window
         c = args[1]
         return (POINT_BYTES * B * (n + 1),
@@ -2185,16 +2190,26 @@ def main(argv) -> int:
         "verifier's host core)")
 
     # -- the main path, counted -----------------------------------------------
+    from zkodst_tpu_torch.ops import msm
+
     kernels.reset_counts()
+    windows, msm_windows = [], msm._windows
+    msm._windows = lambda *a: windows.append(1) or msm_windows(*a)
     t0 = time.perf_counter()
-    pr = api.setup_blake2f(k=K, n_inst=N_INST, srs_seed=SRS_SEED,
-                           echo=False, device="cuda")
-    inputs = api.eip152_inputs(N_INST)
-    proof, inst = pr.prove(*inputs, seed=BLIND_SEED)
-    accepted = pr.verify(inst, proof)
-    torch.cuda.synchronize()
+    try:
+        pr = api.setup_blake2f(k=K, n_inst=N_INST, srs_seed=SRS_SEED,
+                               echo=False, device="cuda")
+        inputs = api.eip152_inputs(N_INST)
+        proof, inst = pr.prove(*inputs, seed=BLIND_SEED)
+        accepted = pr.verify(inst, proof)
+        torch.cuda.synchronize()
+    finally:
+        msm._windows = msm_windows
     wall = time.perf_counter() - t0
     launches = path_counts()
+    gathered = kernels.gather_counts()["chain_scan_local[gather]"]
+    log(f"main path: {len(windows)} MSM window passes, {gathered} "
+        f"launches of kernel 11 gathered")
     copies = kernels.copies()
     for ph in pr.metrics.phases:
         phases[ph.label] = ph.seconds
@@ -2272,6 +2287,9 @@ def main(argv) -> int:
     idle = [k for k, c in launches.items() if c == 0]
     if idle:
         failures.append(f"kernels not launched on the main path: {idle}")
+    if gathered != len(windows):
+        failures.append(f"{len(windows)} MSM window passes on the main path "
+                        f"but {gathered} gathered launches of kernel 11")
 
     # -- warm profile of each phase -------------------------------------------
     adv, _ = pr.witness(*inputs)

@@ -111,6 +111,49 @@ def test_chain_scan_local(data, W):
     assert _affine(_from_jax(jv)) == got
 
 
+def _chain_major(W):
+    """Natural element l·S + k of a row at chain-major place k·W + l."""
+    return np.arange(N).reshape(W, N // W).T.reshape(-1)
+
+
+@pytest.mark.parametrize("W", [128, 256])
+def test_chain_scan_local_gathered(data, W):
+    """The gathered form's twin: chain l's k-th element is the row's
+    (l·S + k)-th, the point of a permutation `index` there, read from the
+    (N, 3, 8) table, with its flag in the same order. Held to the scan
+    oracle, and to JAX ``_chain_scan_local`` on the explicitly gathered
+    chain-major input."""
+    a, _, flags = data
+    index = np.random.default_rng(47).permutation(N)
+    got = _affine(ec.chain_scan_local(
+        curve.from_affine_ints(a), torch.from_numpy(flags)[None], W,
+        index=torch.from_numpy(index)[None]))
+    S = N // W
+    for lane in range(W):
+        rows = range(lane * S, (lane + 1) * S)
+        starts = [True] + [bool(flags[j]) for j in rows[1:]]
+        assert [got[k * W + lane] for k in range(S)] == _scan_oracle(
+            [a[index[j]] for j in rows], starts)
+    cm = _chain_major(W)
+    jv = jmsm._chain_scan_local(
+        _jax_packed(_packed([a[index[j]] for j in cm])),
+        jnp.asarray(flags[cm]), W)
+    assert _affine(_from_jax(jv)) == got
+
+
+def test_chain_scan_local_gathered_rejects_bad_input(data):
+    a, _, flags = data
+    table = curve.from_affine_ints(a)
+    f = torch.from_numpy(flags)[None]
+    index = torch.arange(N)[None]
+    with pytest.raises(ValueError, match="points"):
+        ec.chain_scan_local(curve.pack(table), f, 128, index=index)
+    with pytest.raises(ValueError, match="flags"):
+        ec.chain_scan_local(table, f[:, :256], 128, index=index)
+    with pytest.raises(ValueError, match="multiple"):
+        ec.chain_scan_local(table, f, 384, index=index)
+
+
 def _chain_aggregate_row(a, n):
     """A row of n lanes laid out as the MSM's chain aggregates: points
     drawn from `a`, sparse starts, a long stretch with none, and starts at
@@ -268,6 +311,7 @@ def _pallas_scan_oracle(pts, starts):
 
 
 @pytest.mark.parametrize("kernel", ["seg_step", "chain_scan_local",
+                                    "chain_scan_gathered",
                                     "seg_scan_tiles", "scale_reduce"])
 def test_pallas_twins_match_host_oracle(pallas_data, kernel):
     """The twin of each of kernels 9–12 on pallas (b3 = 15) against the
@@ -289,6 +333,18 @@ def test_pallas_twins_match_host_oracle(pallas_data, kernel):
             starts = [True] + [bool(flags[i]) for i in idx[1:]]
             assert [got[i] for i in idx] == _pallas_scan_oracle(
                 [a[i] for i in idx], starts)
+    elif kernel == "chain_scan_gathered":
+        W = 64
+        S = NP // W
+        index = np.random.default_rng(48).permutation(NP)
+        got = _pallas_affine(ec.chain_scan_local(
+            C.from_affine_ints(a), f, W, curve=C,
+            index=torch.from_numpy(index)[None]))
+        for lane in range(W):
+            rows = range(lane * S, (lane + 1) * S)
+            starts = [True] + [bool(flags[j]) for j in rows[1:]]
+            assert [got[k * W + lane] for k in range(S)] == \
+                _pallas_scan_oracle([a[index[j]] for j in rows], starts)
     elif kernel == "seg_scan_tiles":
         got = _pallas_affine(ec.seg_scan_tiles(_pallas_packed(a), f,
                                                curve=C))

@@ -389,6 +389,106 @@ def test_chain_scan_local_w2048(dev, pts):
           ec.chain_scan_local_plain(Pn, fn, W))
 
 
+def _table(P, Q, n, dev):
+    """(n, 3, 8) distinct points on the card: P[i % m] + Q[i // m % m] of
+    two packed (1, 24, m) rows (kernel 8)."""
+    m = P.shape[2]
+    i = torch.arange(n)
+    s = ec.ec_add(P[:, :, i % m].contiguous().to(dev),
+                  Q[:, :, i // m % m].contiguous().to(dev))
+    return curve.unpack(s)[0]
+
+
+def _sorted_rows(n, rows, c, dev, seed, zero=slice(0, 0)):
+    """Digits of random scalars drawn as c-bit windows and sorted as
+    msm_many sorts them: the given window rows' (sidx, starts). The
+    scalars at `zero` are 0."""
+    from zkodst_tpu_torch.ops import msm
+
+    r = np.random.default_rng(seed)
+    sc = torch.from_numpy(r.integers(0, 1 << 32, (1, n, 8), dtype=np.uint64)
+                          .astype(np.int64))
+    sc[..., 7] &= (1 << 29) - 1                 # 253 bits
+    sc[:, zero] = 0
+    nwin = -(-254 // c)
+    skeys, sidx = msm._sort_windows(sc.to(dev), c, nwin)
+    skeys, sidx = skeys[rows].contiguous(), sidx[rows].contiguous()
+    return sidx, msm._starts(skeys)
+
+
+GATHER_CASES = ["bn254_w2048", "small_w", "ragged", "pallas"]
+
+
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_chain_scan_gathered(dev, pts, pallas_pts, case):
+    """Kernel 11's gathered form against its twin limb for limb, one launch
+    counted under its tag and among its wrapper's:
+    - BN254 at W = 2048 over 2^17 points, four c = 13 windows (the top one
+      among them: 7 bits, long segments across chains) sorted as msm_many
+      sorts them, a tenth of the scalars zero;
+    - a small W (8 chains of 128) over a random permutation;
+    - a ragged N = 1000 padded with identities to 1024 as msm_many pads
+      it, c = 9 windows, W = 512 chains of 2;
+    - the pallas instance over a random permutation (W = 128)."""
+    from zkodst_tpu_torch import kernels
+    from zkodst_tpu_torch.ops import msm
+
+    C = curve.PASTA if case == "pallas" else curve.BN254
+    P, Q, f = pallas_pts if case == "pallas" else pts
+    if case == "bn254_w2048":
+        n, W = 1 << 17, 2048
+        table = _table(P, Q, n, dev)
+        index, f = _sorted_rows(n, [0, 1, 10, 19], 13, dev, 87,
+                                zero=slice(0, n // 10))
+    elif case == "ragged":
+        N, n = 1000, 1024
+        table = torch.cat([_table(P, Q, N, dev), C.identity((n - N,), dev)])
+        W = msm._chain_w(n)
+        index, f = _sorted_rows(n, [0, 5, 28], 9, dev, 88,
+                                zero=slice(N, n))
+        assert (W, n // W) == (512, 2)
+    else:
+        n = P.shape[2]
+        W = 8 if case == "small_w" else 128
+        table = curve.unpack(P)[0].to(dev)
+        index = torch.from_numpy(np.random.default_rng(86).permutation(n))
+        index, f = index[None].to(dev), f.to(dev)
+    kernels.reset_counts()
+    got = ec.chain_scan_local(table, f, W, curve=C, index=index)
+    launched = (kernels.pasta_counts()["chain_scan_local[pallas]"]
+                if case == "pallas" else kernels.counts()["chain_scan_local"])
+    tag = "[pallas,gather]" if case == "pallas" else "[gather]"
+    assert launched == kernels.gather_counts()["chain_scan_local" + tag] == 1
+    _same(got, ec.chain_scan_local_plain(table, f, W, C, index=index))
+
+
+def test_msm_windows_take_the_gathered_form(dev, pts, monkeypatch):
+    """Every window pass of a BN254 msm_many on the card runs kernel 11
+    gathered; the dense form runs only in the Σ d·B_d scans. The MSM
+    equals the same call on the twins."""
+    from zkodst_tpu_torch import kernels
+    from zkodst_tpu_torch.ops import msm
+
+    P, Q, _ = pts
+    n = 4096
+    table = _table(P, Q, n, dev)
+    r = np.random.default_rng(89)
+    sc = torch.from_numpy(r.integers(0, 1 << 32, (1, n, 8), dtype=np.uint64)
+                          .astype(np.int64))
+    sc[..., 7] &= (1 << 29) - 1
+    sc = sc.to(torch.int32)
+    calls = []
+    windows = msm._windows
+    monkeypatch.setattr(msm, "_windows",
+                        lambda *a: calls.append(1) or windows(*a))
+    kernels.reset_counts()
+    got = msm.msm_many(table, sc.to(dev), 13)
+    gathered = kernels.gather_counts()["chain_scan_local[gather]"]
+    assert gathered == len(calls) == 1
+    assert kernels.counts()["chain_scan_local"] > gathered   # Σ d·B_d
+    _same(got, msm.msm_many(table.cpu(), sc, 13))
+
+
 def test_wrappers_reject_bad_input(dev):
     with pytest.raises(ValueError):
         ec.ec_add(torch.zeros((1, 24, 4), dtype=torch.int64, device=dev),

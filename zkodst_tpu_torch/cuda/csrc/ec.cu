@@ -34,9 +34,16 @@
 // local-memory frame to compete with L1), its products are the paired
 // wide multiply-adds of field.cuh, and each thread requests its next
 // element before the add of the current one: the load's latency hides
-// under the add instead of sitting on the chain. Its registers leave two
-// blocks of 128 threads on an SM; more warps, through a register cap or
-// 256 threads a block, did not measure faster.
+// under the add instead of sitting on the chain. It asks for two blocks of
+// 128 threads an SM (__launch_bounds__(128, 2): 200 and 224 registers for
+// BN254's gathered and dense forms); more warps, through a register cap
+// or 256 threads a block, did not measure faster, and ptxas left to itself
+// gives the template 168 registers, three blocks and a spill, 3.5% slower
+// (tools/chain_timing.py). On the MSM's windows it runs gathered: each
+// thread reads its elements' points through the window's sorted point
+// indices, 96 contiguous bytes a point from the table msm_many was given,
+// so the windows make no (rows, 24, n) gathered copy of the points and no
+// transpose of one.
 //
 // scale_reduce (kernel 12) is latency-bound: 4 to 14 batch rows, each a
 // Horner walk of c doublings per window, c·(nlive − 1) doublings and
@@ -265,43 +272,84 @@ seg_step_kernel(const SegStep a) {
   }
 }
 
-// Per-chain segmented inclusive scan. Chain l of a batch row owns elements
-// l, W+l, 2W+l, ...; one thread walks one chain: out = f ? p : acc + p.
-// A chain's head starts a segment (cross-chain carries are the caller's).
-// Element k + 1 (24 words and its flag) is loaded before the add of
-// element k.
-template <class C>
-__global__ void __launch_bounds__(kThreads)
-chain_scan_kernel(const uint32_t* __restrict__ p, const uint8_t* __restrict__ f,
-                  uint32_t* __restrict__ o, int64_t batch, int64_t n,
-                  int64_t W) {
+// chain_scan (kernel 11): a per-chain segmented inclusive scan. Chain l of
+// a batch row walks S = n / W elements, one thread a chain: out = f ? x :
+// acc + x, written chain-major (its k-th element at k·W + l of the row's
+// (24, n) planes). A chain's head starts a segment (cross-chain carries are
+// the caller's). Two forms, one template (Gathered):
+// - dense: x and its flag are the row's (k·W + l)-th packed point and flag,
+//   chain-major as the output (the MSM's Σ d·B_d scans, buckets laid out);
+// - gathered: chain l's k-th element is the row's (l·S + k)-th in sorted
+//   order: the point p[idx[b·n + l·S + k]] of a point-major (m, 3, 8)
+//   table, read as six 16-byte loads (three 32-byte sectors), and the flag
+//   f[b·n + l·S + k]. The MSM's windows pass their points as msm_many gets
+//   them, the sorted point indices and their segment starts, so that no
+//   gathered copy of the points is made; at 2^17 points the table (12.6 MB)
+//   stays in L2. A warp's index and flag loads walk 32 runs at a stride of S
+//   elements, each sector of a run read by the next steps of its thread.
+// Element k + 1 (its point and flag) is loaded before the add of element
+// k; in the gathered form the index of element k + 2 as well, so that the
+// point's load does not wait for its index.
+__device__ __forceinline__ void load_row(const uint32_t* __restrict__ row,
+                                         zk::Pt& x) {
+  const uint4* r = reinterpret_cast<const uint4*>(row);
+  uint4 v[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) v[i] = __ldg(r + i);
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(v);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    x.x[i] = w[i];
+    x.y[i] = w[8 + i];
+    x.z[i] = w[16 + i];
+  }
+}
+
+template <class C, bool Gathered>
+__global__ void __launch_bounds__(kThreads, 2)
+chain_scan_kernel(const uint32_t* __restrict__ p,
+                  const int64_t* __restrict__ idx,
+                  const uint8_t* __restrict__ f, uint32_t* __restrict__ o,
+                  int64_t batch, int64_t n, int64_t W) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= batch * W) return;
   int64_t b = i / W, l = i % W, S = n / W;
-  const uint32_t* pb = p + b * 24 * n;
-  const uint8_t* fb = f + b * n;
+  // element k's flag (and index) is fc[k · step]
+  const int64_t step = Gathered ? 1 : W;
+  const uint8_t* fc = f + b * n + (Gathered ? l * S : l);
+  const int64_t* ic = Gathered ? idx + b * n + l * S : nullptr;
+  const uint32_t* pb = Gathered ? nullptr : p + b * 24 * n;
   uint32_t* ob = o + b * 24 * n;
   zk::Pt acc, next;
   uint8_t next_f = 0;
-  zk::load_pt(pb, n, l, acc);
-  zk::store_pt(ob, n, l, acc);
-  if (S > 1) {
-    zk::load_pt(pb, n, W + l, next);
-    next_f = fb[W + l];
+  int64_t next_j = 0;                  // gathered: element k + 2's index
+  if (Gathered) {
+    load_row(p + 24 * ic[0], acc);
+    if (S > 1) load_row(p + 24 * ic[1], next);
+    if (S > 2) next_j = ic[2];
+  } else {
+    zk::load_pt(pb, n, l, acc);
+    if (S > 1) zk::load_pt(pb, n, W + l, next);
   }
+  if (S > 1) next_f = fc[step];
+  zk::store_pt(ob, n, l, acc);
   for (int64_t k = 1; k < S; ++k) {
-    const int64_t e = k * W + l;
     const zk::Pt x = next;
     const uint8_t fx = next_f;
     if (k + 1 < S) {
-      zk::load_pt(pb, n, e + W, next);
-      next_f = fb[e + W];
+      if (Gathered) {
+        load_row(p + 24 * next_j, next);
+        if (k + 2 < S) next_j = ic[k + 2];
+      } else {
+        zk::load_pt(pb, n, (k + 1) * W + l, next);
+      }
+      next_f = fc[(k + 1) * step];
     }
     if (fx)
       acc = x;
     else
       zk::ec_add<C>(acc, x, acc);
-    zk::store_pt(ob, n, e, acc);
+    zk::store_pt(ob, n, k * W + l, acc);
   }
 }
 
@@ -712,15 +760,24 @@ extern "C" int zk_seg_step(const void* p, const void* q, const void* keep,
   return (int)cudaGetLastError();
 }
 
-extern "C" int zk_chain_scan(const void* p, const void* f, void* o,
-                             long long batch, long long n, long long W,
-                             int curve, void* stream) {
+// Kernel 11 in one of its two forms (see chain_scan_kernel): idx null for
+// the dense form; given, p is the point-major (m, 3, 8) table (16-byte
+// aligned) and idx and f are in the rows' sorted order.
+extern "C" int zk_chain_scan(const void* p, const void* idx, const void* f,
+                             void* o, long long batch, long long n,
+                             long long W, int curve, void* stream) {
   if (batch * n == 0) return 0;
-  const auto kernel = on_curve(curve, chain_scan_kernel<zk::Bn254>,
-                               chain_scan_kernel<zk::Pallas>);
-  if (!kernel) return (int)cudaErrorInvalidValue;
+  const auto kernel =
+      idx ? on_curve(curve, chain_scan_kernel<zk::Bn254, true>,
+                     chain_scan_kernel<zk::Pallas, true>)
+          : on_curve(curve, chain_scan_kernel<zk::Bn254, false>,
+                     chain_scan_kernel<zk::Pallas, false>);
+  if (!kernel || W < 1 || n % W ||
+      (idx && reinterpret_cast<uintptr_t>(p) % 16))
+    return (int)cudaErrorInvalidValue;
   kernel<<<grid(batch * W, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)p, (const uint8_t*)f, (uint32_t*)o, batch, n, W);
+      (const uint32_t*)p, (const int64_t*)idx, (const uint8_t*)f,
+      (uint32_t*)o, batch, n, W);
   return (int)cudaGetLastError();
 }
 

@@ -45,7 +45,7 @@ SIGNATURES = {
         "zk_ec_add": [_P, _P, _P, _LL, _LL, _I, _P],
         "zk_seg_step": [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _I, _I,
                         _P],
-        "zk_chain_scan": [_P, _P, _P, _LL, _LL, _LL, _I, _P],
+        "zk_chain_scan": [_P, _P, _P, _P, _LL, _LL, _LL, _I, _P],
         "zk_seg_scan_tiles": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P],
         "zk_scale_reduce": [_P, _P, _LL, _LL, _I, _I, _P],
     },

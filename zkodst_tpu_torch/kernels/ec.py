@@ -29,13 +29,17 @@ the complete doubling (``dbl_limbs``), the JAX msm's own association.
 index, or a chain's first start; chain-major elements) and may write in
 place, so that its callers make nothing at full size to call it; its
 twin materialises those inputs and computes the reference's step.
+``chain_scan_local`` likewise takes the MSM windows' points as a table
+read through each row's sorted point indices (its gathered form, whose
+launches also count as ``zk_chain_scan[gather]``); its twin gathers them
+explicitly and runs the dense form's association.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.curve import BN254, Curve, add_limbs, dbl_limbs, lanes64
+from ..ops.curve import BN254, Curve, add_limbs, dbl_limbs, lanes64, pack
 from ..ops.field import to_i32
 from .build import call
 
@@ -74,13 +78,13 @@ def _check_points(*xs: torch.Tensor) -> None:
             raise ValueError("operands on different devices")
 
 
-def _flags(f: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    if f.shape != (like.shape[0], like.shape[2]):
-        raise ValueError(f"flags {tuple(f.shape)} do not match points "
-                         f"{tuple(like.shape)}")
-    if f.dtype == torch.bool and f.device == like.device:
+def _flags(f: torch.Tensor, B: int, n: int, device) -> torch.Tensor:
+    """(B, n) flags as a byte of 0 or 1 each on `device`."""
+    if f.shape != (B, n):
+        raise ValueError(f"flags {tuple(f.shape)} do not match ({B}, {n})")
+    if f.dtype == torch.bool and f.device == device:
         return f.contiguous()           # a byte of 0 or 1 a flag as it is
-    return f.to(device=like.device, dtype=torch.uint8).contiguous()
+    return f.to(device=device, dtype=torch.uint8).contiguous()
 
 
 def _tag(curve: Curve):
@@ -132,7 +136,7 @@ def _step_form(p, q, keep, q_index, fs, out):
         return None, W
     if keep is None:
         raise ValueError("seg_step needs keep or fs")
-    keep = _flags(keep, p)
+    keep = _flags(keep, B, n, p.device)
     if q_index is not None:
         if q_index.shape != (B, n) or q.shape[0] != B:
             raise ValueError(f"q_index {tuple(q_index.shape)}, q "
@@ -207,12 +211,19 @@ def seg_step(p: torch.Tensor, q: torch.Tensor, keep=None,
 
 # -- kernel 11: per-chain segmented scan ----------------------------------------
 
-def chain_scan_local_plain(p, f, W: int, curve: Curve = BN254):
-    B, _, n = p.shape
+def chain_scan_local_plain(p, f, W: int, curve: Curve = BN254, *,
+                           index=None):
+    if index is None:
+        B, _, n = p.shape
+        pts = lanes64(p).reshape(B, n // W, W, 3, 8)
+        fl = f.bool().reshape(B, n // W, W)
+    else:                     # gathered: the points of `index`, chain-major
+        B, n = index.shape
+        pts = lanes64(pack(p[index])).reshape(B, W, n // W, 3, 8) \
+            .transpose(1, 2)
+        fl = f.bool().reshape(B, W, n // W).transpose(1, 2)
     S = n // W
-    pts = lanes64(p).reshape(B, S, W, 3, 8)
-    fl = f.bool().reshape(B, S, W)
-    out = torch.empty_like(pts)
+    out = torch.empty((B, S, W, 3, 8), dtype=torch.int64, device=p.device)
     acc = pts[:, 0]
     out[:, 0] = acc
     for k in range(1, S):
@@ -224,19 +235,47 @@ def chain_scan_local_plain(p, f, W: int, curve: Curve = BN254):
 
 
 def chain_scan_local(p: torch.Tensor, f: torch.Tensor, W: int,
-                     curve: Curve = BN254) -> torch.Tensor:
-    """Segmented inclusive scan of each chain l = lanes l, W+l, 2W+l, ...;
-    a chain's head starts a segment. f: segment-start flags."""
-    _check_points(p)
-    f = _flags(f, p)
-    if p.shape[2] % W:
-        raise ValueError(f"n={p.shape[2]} is not a multiple of W={W}")
+                     curve: Curve = BN254, *,
+                     index=None) -> torch.Tensor:
+    """Segmented inclusive scan of W chains a row of n elements, S = n / W
+    a chain, each chain's head a segment start (f: the start flags), into
+    a (batch, 24, n) chain-major result (chain l's k-th sum at k·W + l).
+
+    - dense: p (batch, 24, n) packed points, chain l the lanes l, W + l,
+      2W + l, ... of p and f;
+    - gathered (`index`, (batch, n) int): p the (m, 3, 8) table of points,
+      chain l's k-th element the row's (l·S + k)-th: the point
+      p[index[b, l·S + k]] with the flag f[b, l·S + k]. Nothing is
+      gathered: the kernel reads each point through the index. Its
+      launches count under the tag ``gather`` (``[pallas,gather]``).
+    index must index within p."""
+    if index is None:
+        _check_points(p)
+        B, _, n = p.shape
+    else:
+        if p.dtype != torch.int32 or p.dim() != 3 or p.shape[1:] != (3, 8):
+            raise ValueError(f"gathered chain scan: points must be (m, 3, "
+                             f"8) int32, got {p.dtype} {tuple(p.shape)}")
+        if index.dim() != 2 or index.device != p.device:
+            raise ValueError(f"index {tuple(index.shape)} on {index.device} "
+                             f"for points on {p.device}")
+        B, n = index.shape
+    f = _flags(f, B, n, p.device)
+    if n % W:
+        raise ValueError(f"n={n} is not a multiple of W={W}")
     if p.device.type == "cpu":
-        return chain_scan_local_plain(p, f, W, curve)
+        return chain_scan_local_plain(p, f, W, curve, index=index)
+    tag = _tag(curve)
     p = p.contiguous()
-    out = torch.empty_like(p)
-    call("ec", "zk_chain_scan", p.data_ptr(), f.data_ptr(), out.data_ptr(),
-         p.shape[0], p.shape[2], W, curve.kernel_id, tag=_tag(curve))
+    if index is not None:
+        tag = "gather" if tag is None else f"{tag},gather"
+        index = index.to(torch.int64).contiguous()
+        if p.data_ptr() % 16:            # the kernel's 16-byte loads
+            p = p.clone()
+    out = torch.empty((B, 24, n), dtype=torch.int32, device=p.device)
+    call("ec", "zk_chain_scan", p.data_ptr(),
+         None if index is None else index.data_ptr(), f.data_ptr(),
+         out.data_ptr(), B, n, W, curve.kernel_id, tag=tag)
     return out
 
 
@@ -347,8 +386,8 @@ def seg_scan_tiles(p: torch.Tensor, f: torch.Tensor,
     """Segmented inclusive scan of each row (one cluster of blocks a row);
     a row's first lane starts a segment."""
     _check_points(p)
-    f = _flags(f, p)
     B, _, n = p.shape
+    f = _flags(f, B, n, p.device)
     run, threads, cluster = _scan_layout(B, n)
     if threads // 32 * cluster > 32 // SCAN_LANES:
         raise ValueError(f"a row of {n} lanes needs {cluster} blocks of "

@@ -6,18 +6,21 @@ Counterpart of the packed chained-scan path of ``zkodst_tpu/ops/msm.py``
 ``_seg_scan_chained``), ``_weighted_total_packed`` :276-297), batched
 over B scalar vectors and all windows at once:
 
-  per window:  sort (digit, index) -> gather points chain-major
-               -> chain scan (kernel 11) + chain-aggregate scan (kernel 10)
+  per window:  sort (digit, index)
+               -> chain scan (kernel 11, each point read through the
+                  sorted index) + chain-aggregate scan (kernel 10)
                -> bucket sums gathered at each digit's last sorted row,
                   cross-chain carries applied in place (kernel 9)
                -> Σ d·B_d via a suffix-sum scan (kernels 11, 10, 9) and
                   the sum of the suffix sums (kernels 11, 10, 8)
   combine:     Σ_w 2^(c·w)·S_w (kernel 12)
 
-Sorting, gathers, ``searchsorted`` and ``cumsum`` are glue, as in the
-reference. Inputs of any N are padded with identity points and zero
-scalars to a multiple of 128 lanes (below that, to a power of two of at
-least 16), which adds only zero-digit rows (bucket 0 has weight 0).
+Sorting, the bucket tails' gather and ``searchsorted`` are glue, as in
+the reference; the points are not gathered per window: kernel 11 reads
+them from the MSM's own (n, 3, 8) table. Inputs of any N are padded with
+identity points and zero scalars to a multiple of 128 lanes (below that,
+to a power of two of at least 16), which adds only zero-digit rows
+(bucket 0 has weight 0).
 
 One path for both curves of the port: BN254 G1 (the default) and the
 Pasta pallas curve of the IPA backend, whose MSMs the reference runs as a
@@ -55,6 +58,25 @@ def _digits(scalars: torch.Tensor, c: int, nwin: int) -> torch.Tensor:
     return (d & ((1 << c) - 1)).transpose(1, 2)
 
 
+def _sort_windows(scalars: torch.Tensor, c: int, nwin: int):
+    """(B, n, 8) scalars -> (skeys, sidx), (B·nwin, n) int64: each window's
+    c-bit digits sorted, and their point indices (ties in index order)."""
+    B, n, _ = scalars.shape
+    logn = max(1, (n - 1).bit_length())
+    digs = _digits(scalars, c, nwin).reshape(B * nwin, n)
+    keys = (digs << logn) | torch.arange(n, device=scalars.device)
+    skp = torch.sort(keys, dim=1).values        # keys are unique
+    return skp >> logn, skp & ((1 << logn) - 1)
+
+
+def _starts(skeys: torch.Tensor) -> torch.Tensor:
+    """Segment starts of sorted digit rows: a row's first element and each
+    that differs from the one before it."""
+    starts = torch.ones_like(skeys, dtype=torch.bool)
+    starts[:, 1:] = skeys[:, 1:] != skeys[:, :-1]
+    return starts
+
+
 def _chain_w(n: int) -> int:
     """Chain count W of the chained scan: the widest power of two up to
     2048 that leaves each chain at least two elements (2048 at n = 2^17)."""
@@ -79,16 +101,21 @@ def _seg_scan_flat(pt: torch.Tensor, starts: torch.Tensor,
     return seg_scan_tiles(pt, starts, curve=curve)
 
 
-def _seg_scan_chains(pt, starts, W: int, curve: Curve):
-    """Chained segmented scan of chain-major points: returns the per-chain
-    local scan and each chain's exclusive cross-chain carry (batch, 24, W)."""
-    B, _, n = pt.shape
+def _seg_scan_chains(pt, starts, W: int, curve: Curve, index=None):
+    """Chained segmented scan: returns the per-chain local scan (chain-major)
+    and each chain's exclusive cross-chain carry (batch, 24, W). pt and
+    starts chain-major, or (`index`) pt the (n, 3, 8) point table read
+    through `index` and starts in the index's order (chain l the rows'
+    elements [l·S, (l+1)·S))."""
+    B, n = starts.shape
     S = n // W
-    local = chain_scan_local(pt, starts, W, curve=curve)
+    local = chain_scan_local(pt, starts, W, curve=curve, index=index)
     agg = local[:, :, (S - 1) * W:]
-    aggf = starts.reshape(B, S, W).any(dim=1)          # chain has a start
+    aggf = (starts.reshape(B, S, W).any(dim=1) if index is None
+            else starts.reshape(B, W, S).any(dim=2))   # chain has a start
     incl = _seg_scan_flat(agg, aggf, curve)
-    carry = torch.cat([_idp(B, 1, pt.device, curve), incl[:, :, :-1]], dim=2)
+    carry = torch.cat([_idp(B, 1, local.device, curve), incl[:, :, :-1]],
+                      dim=2)
     return local, carry
 
 
@@ -139,22 +166,18 @@ def _weighted_total(buckets: torch.Tensor, curve: Curve) -> torch.Tensor:
     return ec_add(local[:, :, -1:], carry[:, :, -1:], curve=curve)
 
 
-def _windows(pts_packed, skeys, sidx, c: int, W: int, curve: Curve):
+def _windows(points, skeys, sidx, c: int, W: int, curve: Curve):
     """All windows of all batches at once on the chained path.
 
-    pts_packed (24, N); skeys/sidx (R, N) sorted digits and their point
-    indices, R = batch·windows. Returns the (R, 24, 1) window totals."""
+    points (N, 3, 8); skeys/sidx (R, N) sorted digits and their point
+    indices, R = batch·windows. Chain l of a row owns its sorted elements
+    [l·S, (l+1)·S), which kernel 11 reads through sidx. Returns the
+    (R, 24, 1) window totals."""
     R, N = skeys.shape
     S = N // W
     dev = skeys.device
-    starts = torch.ones_like(skeys, dtype=torch.bool)
-    starts[:, 1:] = skeys[:, 1:] != skeys[:, :-1]
-    # chain-major layout: chain l owns sorted rows [l·S, (l+1)·S)
-    sidx_p = sidx.reshape(R, W, S).transpose(1, 2).reshape(R, N)
-    starts_p = starts.reshape(R, W, S).transpose(1, 2).reshape(R, N)
-    g = pts_packed[:, sidx_p].permute(1, 0, 2).contiguous()   # (R, 24, N)
-    local, carry = _seg_scan_chains(g, starts_p, W, curve)
-    del g
+    starts = _starts(skeys)
+    local, carry = _seg_scan_chains(points, starts, W, curve, index=sidx)
 
     nb = 1 << c
     d = torch.arange(nb, device=dev, dtype=skeys.dtype).expand(R, nb)
@@ -201,15 +224,9 @@ def msm_many(points: torch.Tensor, scalars: torch.Tensor, c: int = 8,
             points = torch.cat([points, curve.identity((n - N,), dev)])
             scalars = torch.cat([scalars, torch.zeros(
                 (B, n - N, 8), dtype=scalars.dtype, device=dev)], dim=1)
-        W = _chain_w(n)
-        logn = max(1, (n - 1).bit_length())
-        digs = _digits(scalars, c, nwin).reshape(B * nwin, n)
-        keys = (digs << logn) | torch.arange(n, device=dev)
-        skp = torch.sort(keys, dim=1).values        # keys are unique
-        skeys, sidx = skp >> logn, skp & ((1 << logn) - 1)
-        pts_packed = pack(points)[0]                        # (24, n)
+        skeys, sidx = _sort_windows(scalars, c, nwin)
         # the window sums, (B·nwin, 24, 1)
-        sums = _windows(pts_packed, skeys, sidx, c, W, curve)
+        sums = _windows(points, skeys, sidx, c, _chain_w(n), curve)
         ws = sums.reshape(B, nwin, 24).transpose(1, 2).contiguous()
         return unpack(scale_reduce(ws, c, curve=curve)[:, :, None])[:, 0]
 
