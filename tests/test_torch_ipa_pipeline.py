@@ -109,11 +109,20 @@ def test_pk_ipa_cache_naming(setup):
     assert again.vk.sigma_commitments == pk.vk.sigma_commitments
 
 
-def test_chip_smoke_holds_the_same_pin():
+@pytest.mark.parametrize("pin", ["toy_ipa", "pasta_k3"])
+def test_chip_smoke_holds_the_same_pin(pin):
+    """The card's check holds the pins these tests hold: the toy circuit's
+    IPA proof and the Pasta opening at K = 3 (tests/test_torch_ipa_pasta.py).
+    """
     import chip_smoke
 
-    assert chip_smoke.TOY_IPA_SHA256 == TOY_IPA_SHA256
-    assert chip_smoke.TOY_IPA_BYTES == TOY_IPA_BYTES
+    if pin == "toy_ipa":
+        assert chip_smoke.TOY_IPA_SHA256 == TOY_IPA_SHA256
+        assert chip_smoke.TOY_IPA_BYTES == TOY_IPA_BYTES
+    else:
+        import test_torch_ipa_pasta
+
+        assert chip_smoke.PASTA_PINS[3] == test_torch_ipa_pasta.OPENING_SHA256
 
 
 @pytest.mark.heavy

@@ -115,3 +115,51 @@ def test_pallas_msm_many_matches_naive(n):
         for p, s in zip(pts, row):
             want[b] = PG.add(want[b], PG.mul(p, s))
     assert C.to_affine_ints(got) == want
+
+
+@pytest.mark.parametrize("name", ["bn254", "pallas"])
+def test_msm_windows_read_points_through_the_index(name, monkeypatch):
+    """At n = 4096 (c = 12, so the Σ d·B_d scans take the chained form)
+    kernel 11 runs gathered once per window pass: a spy where the MSM
+    looks it up sees one call with an `index` per `_windows` pass, and
+    calls without one only inside `_weighted_total`. The MSM of 64-bit
+    scalars (six windows) equals the naive sum, taken as (Σ s_i·k_i)·G
+    over the points k_i·G."""
+    n = 4096
+    C, grp, gen, order, F = (
+        (curve.BN254, G, GEN, R, FR) if name == "bn254"
+        else (curve.PASTA, PG, PGEN, VESTA_BASE, PASTA_FR))
+    r = np.random.default_rng(71)
+    ks = [int(k) for k in r.integers(1, 1 << 30, n)]
+    sc = [int(s) for s in r.integers(0, 1 << 64, n, dtype=np.uint64)]
+    sc[:4] = [0, 1, (1 << 64) - 1, 0]
+    pts = [grp.mul(gen, k) for k in ks]
+    passes, totals, scans = [], [], []
+    windows, total, scan = msm._windows, msm._weighted_total, \
+        msm.chain_scan_local
+
+    def spy_windows(*a):
+        passes.append(1)
+        return windows(*a)
+
+    def spy_total(*a):
+        totals.append(1)
+        try:
+            return total(*a)
+        finally:
+            totals.pop()
+
+    def spy_scan(*a, index=None, **kw):
+        scans.append((index is not None, bool(totals)))
+        return scan(*a, index=index, **kw)
+    monkeypatch.setattr(msm, "_windows", spy_windows)
+    monkeypatch.setattr(msm, "_weighted_total", spy_total)
+    monkeypatch.setattr(msm, "chain_scan_local", spy_scan)
+    got = msm.msm(C.from_affine_ints(pts), F.const(ints_to_limbs(sc)), c=12,
+                  scalar_bits=64, curve=C)
+    assert len(passes) == 1
+    assert [s for s in scans if s[0]] == [(True, False)] * len(passes)
+    dense = [s for s in scans if not s[0]]
+    assert dense and all(inside for _, inside in dense)
+    want = grp.mul(gen, sum(s * k for s, k in zip(sc, ks)) % order)
+    assert C.to_affine_ints(got[None]) == [want]

@@ -39,11 +39,11 @@
 // BN254's gathered and dense forms); more warps, through a register cap
 // or 256 threads a block, did not measure faster, and ptxas left to itself
 // gives the template 168 registers, three blocks and a spill, 3.5% slower
-// (tools/chain_timing.py). On the MSM's windows it runs gathered: each
-// thread reads its elements' points through the window's sorted point
-// indices, 96 contiguous bytes a point from the table msm_many was given,
-// so the windows make no (rows, 24, n) gathered copy of the points and no
-// transpose of one.
+// (PERF.md §6, design measurements). On the MSM's windows it runs
+// gathered: each thread reads its elements' points through the window's
+// sorted point indices, 96 contiguous bytes a point from the table msm_many
+// was given, so the windows make no (rows, 24, n) gathered copy of the
+// points and no transpose of one.
 //
 // scale_reduce (kernel 12) is latency-bound: 4 to 14 batch rows, each a
 // Horner walk of c doublings per window, c·(nlive − 1) doublings and
@@ -125,7 +125,7 @@ ec_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
 // block, a tile of blockDim: blocks then start staggered, and one
 // block's loads overlap the others' adds; tiles of 512 and 2048 run 4
 // and 16 rounds a block in step, their loads exposed, 2% and 28% slower
-// on the H100 (tools/step_timing.py).
+// on the H100 (PERF.md §6, design measurements).
 constexpr int kStepMaxTile = 2048;      // elements a block at most
 constexpr int kStepWords = 8;           // words a warp requests at a time
 constexpr int kStepDirect = 24;         // needs that a word adds in place
@@ -361,7 +361,8 @@ chain_scan_kernel(const uint32_t* __restrict__ p,
 // data needs (31 µs for the whole (80, 24, 2048) call over 132 SMs), but a
 // scan cannot reach it: it puts 2·run + log2(threads) + 1 complete adds
 // in series, and one warp alone takes ~5.8 µs for an add in one thread,
-// ~3.2 µs split over two lanes, ~2.5 µs over four (tools/scan_probe.py):
+// ~3.2 µs split over two lanes, ~2.5 µs over four (PERF.md §6, design
+// measurements):
 // a lone warp already fills its SM sub-partition's issue (two independent
 // Montgomery products in one thread take twice one), so the chain's length
 // in issued instructions is the bound. Every call on the path (rows of 16
@@ -383,7 +384,7 @@ chain_scan_kernel(const uint32_t* __restrict__ p,
 //   on `run` and G only, not on C or the block size. One block a row (the
 //   same kernel at C = 1, with runs twice as long where a row would exceed
 //   a block) is within 6% of it at 70 and 80 rows but 1.25–2.2 times
-//   slower at 20 and 60 rows (tools/scan_probe.py).
+//   slower at 20 and 60 rows (PERF.md §6, design measurements).
 // - Scans work-efficiently: each thread reduces its run (run − 1 adds,
 //   nothing written); each warp scans its 16 (sum, has-start) pairs with
 //   shuffles of the 24 words (4 levels); warp 0 of each block reads the

@@ -127,8 +127,8 @@ binop_kernel(const uint4* __restrict__ a, const uint4* __restrict__ b,
 // What still bounds it is those products, not its memory access: a thread
 // reads and writes 8 contiguous elements (lanes 256 bytes apart), yet the
 // same scan with every chunk staged through shared memory by coalesced
-// cp.async copies and written back coalesced (cuda/csrc/probe_mulmod.cu,
-// run by tools/scan_probe.py) took from 2.3% less to 0.1% more time
+// cp.async copies and written back coalesced (a probe kernel; PERF.md §6,
+// design measurements) took from 2.3% less to 0.1% more time
 // with one chunk buffer, and up to 13% more with two (3 blocks an SM
 // instead of 9), at the path's shapes.
 constexpr int kChainThreads = 128;
@@ -268,7 +268,8 @@ chain_cumprod_kernel(const uint4* __restrict__ x, uint4* __restrict__ o,
 // Bound on the H100: the latency of its chain of dependent products. The
 // path scans m = 2048 totals 42 times; the bytes (64 KB) and the 2,047
 // products are nothing to the card, but a scan puts ~log2(m) products in
-// series and one warp alone takes ~0.43 µs a product (tools/scan_probe.py).
+// series and one warp alone takes ~0.43 µs a product (PERF.md §6, design
+// measurements).
 // The design keeps that chain short and spreads the products over several
 // SMs, instead of one block walking runs and scanning its run totals
 // Hillis–Steele through shared memory (~24 products in series, ~5,600 on
@@ -286,7 +287,7 @@ chain_cumprod_kernel(const uint4* __restrict__ x, uint4* __restrict__ o,
 //   each thread then multiplies that by its two local prefixes, which it
 //   formed before the barrier (1, two independent products). 12 products
 //   in series, and 1/C of the call's products on each SM.
-// Measured on an H100 (tools/scan_probe.py; PERF.md): 13.4–13.8 µs at
+// Measured on an H100 (PERF.md §6, design measurements): 13.4–13.8 µs at
 // m = 2048 on 8 or 16 blocks, 15.0 on 4, 20.0 on 2, 30.4 on 1, against
 // 12 × 0.436 µs = 5.2 µs for the chain. A warp issues 14 products on the
 // path (its local prefix before the cluster barrier, its two outputs one

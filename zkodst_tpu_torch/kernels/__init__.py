@@ -15,9 +15,8 @@ IPA backend's second curve) are counted apart (:data:`PASTA_WRAPPERS`,
 and so are kernels 13 and 14, the BLAKE2f witness (into the circuit's
 columns, or as a stream) and compression, which replace no Pallas kernel
 (:data:`BLAKE2F_WRAPPERS`, :func:`blake2f_counts`; they take int64 word
-pairs). Kernel 11's gathered form (the MSM's windows) counts under a tag
-of its own and among its wrapper's launches, to which a trace maps both
-forms' kernels (:func:`gather_counts`).
+pairs). Kernel 11's two forms, dense and gathered (the MSM's windows),
+count as one wrapper's launches.
 """
 
 from __future__ import annotations
@@ -72,33 +71,14 @@ def reset_counts() -> None:
         mulmod.OPERAND_COPIES[kind] = 0
 
 
-# kernel 11's gathered form (the MSM's windows) counts under a key of its
-# own, and among the launches of its entry and curve
-GATHERED = {"zk_chain_scan": "zk_chain_scan[gather]",
-            "zk_chain_scan[pallas]": "zk_chain_scan[pallas,gather]"}
-
-
-def _launches(entry: str) -> int:
-    """Launches of `entry` in all its forms."""
-    return build.LAUNCHES.get(entry, 0) + build.LAUNCHES.get(
-        GATHERED.get(entry), 0)
-
-
 def counts() -> dict:
-    return {name: _launches(entry) for name, (_, entry) in WRAPPERS.items()}
+    return {name: build.LAUNCHES.get(entry, 0)
+            for name, (_, entry) in WRAPPERS.items()}
 
 
 def pasta_counts() -> dict:
-    return {name: _launches(entry)
+    return {name: build.LAUNCHES.get(entry, 0)
             for name, (_, entry) in PASTA_WRAPPERS.items()}
-
-
-def gather_counts() -> dict:
-    """``chain_scan_local[gather]`` and ``chain_scan_local[pallas,gather]``:
-    the launches of kernel 11's gathered form, which :func:`counts` and
-    :func:`pasta_counts` hold among their wrapper's."""
-    return {key.replace("zk_chain_scan", "chain_scan_local"):
-            build.LAUNCHES.get(key, 0) for key in GATHERED.values()}
 
 
 def blake2f_counts() -> dict:

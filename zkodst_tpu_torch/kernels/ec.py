@@ -30,9 +30,8 @@ index, or a chain's first start; chain-major elements) and may write in
 place, so that its callers make nothing at full size to call it; its
 twin materialises those inputs and computes the reference's step.
 ``chain_scan_local`` likewise takes the MSM windows' points as a table
-read through each row's sorted point indices (its gathered form, whose
-launches also count as ``zk_chain_scan[gather]``); its twin gathers them
-explicitly and runs the dense form's association.
+read through each row's sorted point indices (its gathered form); its
+twin gathers them explicitly and runs the dense form's association.
 """
 
 from __future__ import annotations
@@ -246,8 +245,7 @@ def chain_scan_local(p: torch.Tensor, f: torch.Tensor, W: int,
     - gathered (`index`, (batch, n) int): p the (m, 3, 8) table of points,
       chain l's k-th element the row's (l·S + k)-th: the point
       p[index[b, l·S + k]] with the flag f[b, l·S + k]. Nothing is
-      gathered: the kernel reads each point through the index. Its
-      launches count under the tag ``gather`` (``[pallas,gather]``).
+      gathered: the kernel reads each point through the index.
     index must index within p."""
     if index is None:
         _check_points(p)
@@ -265,17 +263,15 @@ def chain_scan_local(p: torch.Tensor, f: torch.Tensor, W: int,
         raise ValueError(f"n={n} is not a multiple of W={W}")
     if p.device.type == "cpu":
         return chain_scan_local_plain(p, f, W, curve, index=index)
-    tag = _tag(curve)
     p = p.contiguous()
     if index is not None:
-        tag = "gather" if tag is None else f"{tag},gather"
         index = index.to(torch.int64).contiguous()
         if p.data_ptr() % 16:            # the kernel's 16-byte loads
             p = p.clone()
     out = torch.empty((B, 24, n), dtype=torch.int32, device=p.device)
     call("ec", "zk_chain_scan", p.data_ptr(),
          None if index is None else index.data_ptr(), f.data_ptr(),
-         out.data_ptr(), B, n, W, curve.kernel_id, tag=tag)
+         out.data_ptr(), B, n, W, curve.kernel_id, tag=_tag(curve))
     return out
 
 
