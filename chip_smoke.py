@@ -16,12 +16,14 @@ each kernel's ptxas registers, stack frame and spills, then checks:
   verifying key's transcript digest, the 37 digests and all 4480 proof
   bytes and their sha256 against ``tests/golden/flagship_proof_v1.json``;
   the verifier accepts the proof and rejects it with one byte flipped in
-  a point and in a scalar. Every kernel is launched, no broadcast binop
-  operand is copied whole, every MSM window pass calls kernel 11 gathered
-  once, and a warm witness launches kernel 13 once and nothing else;
+  a point and in a scalar. Every kernel is launched, kernel 15 (the
+  quotient) once, no broadcast binop operand is copied whole, every MSM
+  window pass calls kernel 11 gathered once, and a warm witness launches
+  kernel 13 once and nothing else;
 - every kernel against its plain PyTorch twin, limb for limb, at each
   shape and flags the main path gave it (kernels 4 and 5 also in the
-  other direction, kernel 5 inclusive and exclusive);
+  other direction, kernel 5 inclusive and exclusive), and kernel 15 at
+  the flagship key's tape over the 2^19-row coset, on random columns;
 - then phases, each with the launch counts set to 0 before it and
   printing a JSON line of its own: ``mock`` (the flagship witness passes
   the mock checker and fails a gate and a copy with one ``w`` and one
@@ -84,6 +86,7 @@ IPA_PROOF_BYTES = 4480 - 32 + 34 * 32 + 64
 IPA_L1_AT = SCALAR_AT + 100 * 32 + 32    # the first L (after W)
 IPA_A0_AT = IPA_PROOF_BYTES - 64
 IPA_SAMPLE_SEED = 17                     # the generators sampled
+QUOTIENT_SEED = 15                       # kernel 15's random columns
 # the JAX package's IPA proof of the toy circuit (k = 5, blind seed 3):
 # tests/test_torch_ipa_pipeline.py pins the same string
 TOY_IPA_SHA256 = \
@@ -304,11 +307,42 @@ def kernel_tables():
 
 def path_counts() -> dict:
     """The launches since the last reset of the kernels a proof's path runs:
-    the twelve and kernel 13 (the witness into the columns)."""
+    the twelve, kernel 13 (the witness into the columns) and kernel 15 (the
+    quotient's numerator)."""
     from zkodst_tpu_torch import kernels
 
     return {**kernels.counts(),
-            "blake2f_advice": kernels.blake2f_counts()["blake2f_advice"]}
+            "blake2f_advice": kernels.blake2f_counts()["blake2f_advice"],
+            **kernels.quotient_counts()}
+
+
+def quotient_check(tape, failures) -> None:
+    """Kernel 15 against its plain twin on the card, limb for limb, at
+    `tape` (the flagship key's) over its whole coset: random canonical
+    columns and challenges."""
+    import torch
+
+    from zkodst_tpu_torch.kernels import quotient as kq
+    from zkodst_tpu_torch.ops.field import FR as DFR
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(QUOTIENT_SEED)
+    cols = torch.randint(0, 1 << 32, (len(tape.columns), tape.rows, 8),
+                         device="cuda", dtype=torch.int64, generator=g)
+    cols[..., 7] %= DFR.p >> 224
+    cols = (cols - ((cols >= 1 << 31).to(torch.int64) << 32)).to(torch.int32)
+    rnd = random.Random(QUOTIENT_SEED)
+    chal = [rnd.randrange(DFR.p) for _ in kq.CHALLENGES]
+    got = kq.quotient(DFR, tape, list(cols), chal)
+    want = kq.quotient_plain(DFR, tape, list(cols), chal)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        failures.append(f"quotient ({tape.rows}, 8) at the flagship tape: "
+                        "kernel != plain")
+    else:
+        log(f"quotient: kernel 15 at the flagship tape ({len(tape.steps)} "
+            f"steps, {len(tape.inputs)} inputs, {tape.slots} slots) over "
+            f"{tape.rows} rows held to plain")
 
 
 def idle_kernels(launches, names=None) -> list:
@@ -1286,6 +1320,9 @@ def main(argv) -> int:
     idle = [k for k, c in launches.items() if c == 0]
     if idle:
         failures.append(f"kernels not launched on the main path: {idle}")
+    if launches["quotient"] != 1:
+        failures.append(f"kernel 15 launched {launches['quotient']} times on "
+                        "one prove, not once")
     if sum(gathered) != len(windows):
         failures.append(f"{len(windows)} MSM window passes on the main path "
                         f"but {sum(gathered)} gathered calls of kernel 11")
@@ -1302,6 +1339,7 @@ def main(argv) -> int:
     held = hold_to_twins(rec.calls, wrappers, plains, failures)
     failures += [f"{name}: no call recorded on the main path"
                  for name in wrappers if name not in held]
+    quotient_check(pr.pk.prover_cache["quotient_tape"], failures)
 
     # -- the rest of the single-device API, each path counted on its own --
     phase_line("mock", *mock_phase(pr, inputs, wrappers, plains), failures)

@@ -801,3 +801,42 @@ def test_blake2f_wrappers_reject_bad_input(dev):
         kb.blake2f_compress(z[8], z[16], z[2], f, -1)
     with pytest.raises(ValueError):       # the placement on the host
         kb.blake2f_advice(z[8], z[16], z[2], f, 1, _b2_plan(1, "cpu"))
+
+
+# -- kernel 15: the quotient's tape at every row of the coset -----------------
+
+@pytest.fixture(scope="module")
+def blake2f_vk():
+    from zkodst_tpu_torch.circuit.blake2f import Blake2fCircuit
+    from zkodst_tpu_torch.proof import keygen
+
+    circ = Blake2fCircuit(k=17, device="cpu").circ
+    return keygen.VerifyingKey(circ.k, {}, [], keygen.perm_columns(circ),
+                               circ)
+
+
+@pytest.mark.parametrize("n", [64, 1024])
+def test_quotient(dev, blake2f_vk, n):
+    """The BLAKE2f circuit's tape over a coset of 4n rows, at random
+    columns with 0, 1, p − 1 and R mod p in their first rows, equals the
+    plain twin bit for bit. Its rotations −1, +1 and usable_rows read
+    across the end of the coset (at 4n rows usable_rows·4 wraps too); one
+    launch a call."""
+    from zkodst_tpu_torch import kernels
+    from zkodst_tpu_torch.kernels import quotient as kq
+    from zkodst_tpu_torch.proof import prover
+
+    tape = prover.compile_quotient(blake2f_vk, n)
+    rows = 4 * n
+    u = blake2f_vk.circ.usable_rows
+    shifts = {s for _, s in tape.inputs}
+    assert {rows - 4, 4, 4 * u % rows} <= shifts and 4 * u > rows
+    cols = [_elements(FR, rows, 300 + i) for i in range(len(tape.columns))]
+    r = np.random.default_rng(301)
+    chal = [int.from_bytes(r.bytes(40), "little") % FR.p for _ in range(4)]
+    kernels.reset_counts()
+    got = kq.quotient(FR, tape, [c.to(dev) for c in cols], chal)
+    torch.cuda.synchronize()
+    assert kernels.quotient_counts() == {"quotient": 1}
+    assert sum(kernels.counts().values()) == 0
+    _same(got, kq.quotient_plain(FR, tape, cols, chal))

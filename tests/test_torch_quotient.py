@@ -28,6 +28,7 @@ from zkodst_tpu.proof import verifier as jverifier
 from zkodst_tpu_torch.circuit import expr as texpr
 from zkodst_tpu_torch.circuit import ir as tir
 from zkodst_tpu_torch.kernels import mulmod
+from zkodst_tpu_torch.kernels import quotient as kq
 from zkodst_tpu_torch.ops import field as tfield
 from zkodst_tpu_torch.ops import ntt as tntt
 from zkodst_tpu_torch.ops import pycurve
@@ -128,10 +129,10 @@ def test_constraints_match_jax(circuit):
     """One host-int context for both enumerations, at random challenges
     and column values: the same terms in the same order, the same fold."""
     tvk, jvk = _vks(circuit)
-    rec = prover._RecCtx()
-    constraints.enumerate_constraints(tvk, rec)
+    names = set(prover.compile_quotient(tvk, 1 << tvk.k).columns) \
+        - set(prover._SELS)
     u = tvk.circ.usable_rows
-    ev = {(name, r): _rand() for name in rec.names
+    ev = {(name, r): _rand() for name in names
           for r in (-1, 0, 1, u)}
     x, l0, llast, lblind = (_rand() for _ in range(4))
     chal = dict(zip(("theta", "beta", "gamma", "y"),
@@ -144,7 +145,117 @@ def test_constraints_match_jax(circuit):
         jconstraints.fold_y(jctx, terms)
     jrec = jprover._RecCtx()
     jconstraints.enumerate_constraints(jvk, jrec)
-    assert rec.names == jrec.names
+    assert names == jrec.names
+
+
+def _blake2f_vk():
+    from zkodst_tpu_torch.circuit.blake2f import Blake2fCircuit
+
+    circ = Blake2fCircuit(k=17, device="cpu").circ
+    return keygen.VerifyingKey(circ.k, {}, [], keygen.perm_columns(circ),
+                               circ)
+
+
+@pytest.mark.parametrize("circuit", ["toy", "rich"])
+def test_quotient_tape_matches_jax_quotient_fn(circuit):
+    """The tape's plain evaluation (the path's h on the coset) against the
+    JAX package's jitted ``_quotient_fn`` on random extended columns."""
+    tvk, jvk = _vks(circuit)
+    n = 1 << tvk.k
+    tape = prover.compile_quotient(tvk, n)
+    jdom = jdomain.Domain(tvk.k)
+    exts16 = {nm: JF.from_ints(_vals((4 * n,)))
+              for nm in tape.columns if nm not in prover._SELS}
+    x16 = JF.from_ints(_vals((4 * n,)))
+    sels16 = jdom.selectors_extended()
+    chal = dict(zip(kq.CHALLENGES, (_rand() for _ in range(4))))
+    want = jprover._quotient_fn(jvk, jdom)(
+        {nm: jnp.asarray(v) for nm, v in exts16.items()},
+        {k: jnp.asarray(v) for k, v in sels16.items()},
+        {k: jnp.asarray(JF.from_int(v)) for k, v in chal.items()},
+        jnp.asarray(x16))
+    got = prover.quotient_eval(
+        tape, {nm: tfield.from_limbs16(v) for nm, v in exts16.items()},
+        Domain(tvk.k).selectors_extended(device="cpu"), chal,
+        tfield.from_limbs16(x16))
+    _same(got, want)
+
+
+def _run_ints(tape, at_input, chal):
+    """The tape at one point in Python ints."""
+    slots = [None] * tape.slots
+
+    def val(v):
+        kind, i = v >> kq.KIND_SHIFT, v & (kq.MAX_INDEX - 1)
+        return (slots, at_input, tape.consts, chal)[kind][i]
+
+    for op, dst, a, b in tape.steps.tolist():
+        x, y = val(a), val(b)
+        slots[dst] = (x * y if op == kq.MUL else
+                      x + y if op == kq.ADD else x - y) % PFR.p
+    return slots[tape.out]
+
+
+@pytest.mark.parametrize("circuit", ["toy", "rich", "blake2f"])
+def test_quotient_tape_keeps_the_walk_and_its_fold(circuit):
+    """The tape run on host ints at random column values equals the
+    verifier's fold of the same enumeration (``_PointCtx``) times 1/Z_H:
+    the compiler keeps every term, the order and the y-fold."""
+    vk = _blake2f_vk() if circuit == "blake2f" else _vks(circuit)[0]
+    n = 1 << vk.k
+    tape = prover.compile_quotient(vk, n)
+    u = vk.circ.usable_rows
+    rots = (-1, 0, 1, u)
+    ev = {(nm, r): _rand() for nm in tape.columns for r in rots}
+    x, l0, llast, lblind, zh_inv = (_rand() for _ in range(5))
+    sel = {prover.SEL_L0: l0, prover.SEL_LLAST: llast,
+           prover.SEL_LBLIND: lblind, prover.SEL_ZH_INV: zh_inv,
+           prover.SEL_X: x}
+    shift_rot = {4 * r % (4 * n): r for r in rots}
+    at_input = []
+    for c, shift in tape.inputs:
+        nm = tape.columns[c]
+        at_input.append(sel[nm] if nm in sel
+                        else ev[(nm, shift_rot[shift])])
+    chal = dict(zip(kq.CHALLENGES, (_rand() for _ in range(4))))
+    ctx = verifier._PointCtx(ev, x, chal, l0, llast, lblind)
+    want = constraints.fold_y(ctx, constraints.enumerate_constraints(vk, ctx))
+    assert _run_ints(tape, at_input, [chal[k] for k in kq.CHALLENGES]) == \
+        want * zh_inv % PFR.p
+
+
+def test_blake2f_tape_fits_the_kernel_and_a_deeper_one_raises():
+    tape = prover.compile_quotient(_blake2f_vk(), 1 << 17)
+    assert tape.slots <= kq.MAX_SLOTS
+    assert len(tape.columns) <= kq.MAX_COLS
+    assert tape.rows == 1 << 19
+    assert (tape.steps[:, 1] < tape.slots).all() and tape.out < tape.slots
+    # a gate whose left operands all stay live down a right-leaning chain
+    cols = [f"a{i}" for i in range(kq.MAX_SLOTS + 4)]
+    V = texpr.V
+    poly = V(cols[-1])
+    for c0, c1 in zip(cols[-2::-1], cols[-1:0:-1]):
+        poly = (V(c0) + V(c1)) * poly
+    circ = tir.CircuitDef(k=5, advice_names=cols, instance_names=[],
+                          fixed={}, gates=[tir.Gate("deep", poly)])
+    vk = keygen.VerifyingKey(5, {}, [], keygen.perm_columns(circ), circ)
+    with pytest.raises(ValueError, match="slots"):
+        prover.compile_quotient(vk, 32)
+
+
+def test_quotient_wrapper_rejects_bad_input():
+    tvk, _ = _vks("toy")
+    tape = prover.compile_quotient(tvk, 32)
+    cols = [TF.from_ints(_vals((128,))) for _ in tape.columns]
+    chal = [1, 2, 3, 4]
+    with pytest.raises(ValueError, match="Fr alone"):
+        kq.quotient(tfield.FQ, tape, cols, chal)
+    with pytest.raises(ValueError, match="columns"):
+        kq.quotient(TF, tape, cols[1:], chal)
+    with pytest.raises(ValueError, match="challenges"):
+        kq.quotient(TF, tape, cols, chal[:3])
+    with pytest.raises(ValueError, match=r"\(128, 8\)"):
+        kq.quotient(TF, tape, [c[:64] for c in cols], chal)
 
 
 @pytest.mark.parametrize("circuit", ["toy", "rich"])

@@ -61,10 +61,11 @@ CACHE = os.path.join(REPO, "tests", "golden", "dryrun_cache")
 # host waits of one warm toy prove (k = 5, one lookup, no instance
 # column): 11 reads back and the lookup sort's 4 boolean masks
 TOY_WAITS = 15
-# and its uploads: the constants, challenges and blinds (79), and the one
-# of each batch inverse (the lookup table's key is uploaded once, with the
-# key's caches, at the first prove)
-TOY_UPLOADS = 83
+# and its uploads: the constants, challenges and blinds (68), and the one
+# of each batch inverse (the lookup table's key and the quotient's tape are
+# uploaded once, with the key's caches, at the first prove; kernel 15 takes
+# the challenges in its launch's parameters)
+TOY_UPLOADS = 72
 # the spans of a warm toy prove other than its transforms', as they were
 # before the transforms had spans of their own
 TOY_LABELS = (
@@ -475,6 +476,19 @@ def test_toy_prove_spans(toy_proves):
             assert p.waits <= by[p.parent].waits
     assert by["prove"].waits == toy_proves[1][1]["host_waits"]
     assert by["prove.quotient.msm"].counts["points"] > 0
+
+
+def test_toy_prove_constraints_span_counts_its_tape(toy_proves):
+    """The quotient's constraint span carries the key's tape: its steps,
+    inputs and the coset's rows (one launch of kernel 15 on the card)."""
+    m, _, _ = toy_proves
+    circ, _ = _toy(5)
+    vk = keygen.VerifyingKey(5, {}, [], keygen.perm_columns(circ), circ)
+    want = prover.compile_quotient(vk, 32).counts()
+    spans = [p for p in m.phases if p.label == "prove.quotient.constraints"]
+    assert len(spans) == 3
+    assert all(p.counts == want for p in spans)
+    assert want["rows"] == 128 and want["steps"] > 0 and want["inputs"] > 0
 
 
 def test_toy_prove_ntt_spans(toy_proves):

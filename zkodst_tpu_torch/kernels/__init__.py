@@ -15,14 +15,16 @@ IPA backend's second curve) are counted apart (:data:`PASTA_WRAPPERS`,
 and so are kernels 13 and 14, the BLAKE2f witness (into the circuit's
 columns, or as a stream) and compression, which replace no Pallas kernel
 (:data:`BLAKE2F_WRAPPERS`, :func:`blake2f_counts`; they take int64 word
-pairs). Kernel 11's two forms, dense and gathered (the MSM's windows),
-count as one wrapper's launches.
+pairs), and so is kernel 15, the quotient's numerator, which replaces the
+JAX package's jitted ``_quotient_fn`` (:data:`QUOTIENT_WRAPPERS`,
+:func:`quotient_counts`; it runs a per-key tape). Kernel 11's two forms,
+dense and gathered (the MSM's windows), count as one wrapper's launches.
 """
 
 from __future__ import annotations
 
 from ..utils import timing
-from . import blake2, build, ec, mulmod, ntt
+from . import blake2, build, ec, mulmod, ntt, quotient
 
 # wrapper -> (wrapper function, its C entry point)
 WRAPPERS = {
@@ -61,6 +63,9 @@ BLAKE2F_WRAPPERS = {
     "blake2f_compress": (blake2.blake2f_compress, "zk_blake2f_compress"),
 }
 
+# kernel 15: the constraint system's tape at every row of the coset
+QUOTIENT_WRAPPERS = {"quotient": (quotient.quotient, "zk_quotient")}
+
 
 def reset_counts() -> None:
     """Clear the launch counts, the operand copies and the host-wait
@@ -84,6 +89,11 @@ def pasta_counts() -> dict:
 def blake2f_counts() -> dict:
     return {name: build.LAUNCHES.get(entry, 0)
             for name, (_, entry) in BLAKE2F_WRAPPERS.items()}
+
+
+def quotient_counts() -> dict:
+    return {name: build.LAUNCHES.get(entry, 0)
+            for name, (_, entry) in QUOTIENT_WRAPPERS.items()}
 
 
 def copies() -> dict:

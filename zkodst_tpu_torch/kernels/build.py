@@ -26,7 +26,7 @@ from typing import Dict
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "cuda" / "csrc"
 BUILD_DIR = _PKG / "cuda" / "build"
-SOURCES = ("mulmod", "ec", "ntt", "blake2f")
+SOURCES = ("mulmod", "ec", "ntt", "blake2f", "quotient")
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
@@ -58,6 +58,9 @@ SIGNATURES = {
                               _P, _LL, _LL, _I, _P],
         "zk_blake2f_witness": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P],
         "zk_blake2f_compress": [_P, _P, _P, _P, _I, _P, _LL, _LL, _P],
+    },
+    "quotient": {
+        "zk_quotient": [_P, _I, _P, _P, _P, _I, _P, _P, _LL, _I, _I, _P],
     },
 }
 

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..circuit.ir import BLINDING_ROWS, CircuitDef, u64_cols_to_field
+from ..kernels import quotient as kquotient
 from ..ops import u64
 from ..ops.field import FR
 from ..ops.ntt import powers_table
@@ -415,90 +416,89 @@ def rotation_point(dom: Domain, x: int, rot: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# the quotient's constraint contexts
+# the quotient's program (kernel 15)
 # ---------------------------------------------------------------------------
 
-class _RecCtx:
-    """Dry-run context: records which columns the constraint system reads
-    (host ints, no device work)."""
-
-    def __init__(self):
-        self.names = set()
-        self.l0 = self.llast = self.active = 1
-        self.theta = self.beta = self.gamma = self.y = 1
-
-    def const(self, v):
-        return 1
-
-    def get(self, name, rot):
-        self.names.add(name)
-        return 1
-
-    def identity(self, gi):
-        return 1
-
-    def add(self, a, b):
-        return 0
-
-    def sub(self, a, b):
-        return 0
-
-    def mul(self, a, b):
-        return 0
+# the inputs of the tape that are no column of the proof: the key's
+# extended-coset selectors (``ProvingKey.ext_selectors``) and X
+SEL_L0, SEL_LLAST, SEL_LBLIND, SEL_ZH_INV, SEL_X = (
+    "sel:l0", "sel:llast", "sel:lblind", "sel:zh_inv", "sel:x")
+_SELS = (SEL_L0, SEL_LLAST, SEL_LBLIND, SEL_ZH_INV, SEL_X)
 
 
-class _ExtCtx:
-    """The constraint system over extended-coset columns (4n, 8), eager:
-    every add, sub and mul is one launch of kernel 2, 3 or 1. Constants
-    and challenges stay (8,) tensors that the kernels read once as
-    broadcast operands; a rotation by r rows of H is a roll by r·4 rows
-    of the coset, made once per (column, rotation)."""
+class _TapeCtx:
+    """Recording context: walks the constraint system once, on symbolic
+    operands, and keeps its steps in the walk's order for
+    :func:`compile_quotient`. A column read is an input (re-read wherever
+    it is used, never held), a constant an entry of the key's table, a
+    challenge one of the four the kernel is given."""
 
-    def __init__(self, exts: Dict[str, torch.Tensor],
-                 sels: Dict[str, torch.Tensor], chal: Dict[str, int],
-                 xext: torch.Tensor):
-        self.exts = exts
-        self.dev = xext.device
-        self._rolled: Dict[Tuple[str, int], torch.Tensor] = {}
-        self.l0 = sels["l0"]
-        self.llast = sels["llast"]
-        self.active = FR.sub(FR.sub(self.const(1), self.llast),
-                             sels["lblind"])
-        for name in ("theta", "beta", "gamma", "y"):
-            setattr(self, name, self.const(chal[name]))
-        self.xext = xext
+    def __init__(self, rows: int):
+        self.rows = rows
+        self.columns: Dict[str, int] = {}
+        self.inputs: Dict[Tuple[int, int], int] = {}
+        self.consts: Dict[int, int] = {}
+        self.steps: List = []
+        self.l0 = self.get(SEL_L0, 0)
+        self.llast = self.get(SEL_LLAST, 0)
+        self.active = self.sub(self.sub(self.const(1), self.llast),
+                               self.get(SEL_LBLIND, 0))
+        for i, name in enumerate(kquotient.CHALLENGES):
+            setattr(self, name, (kquotient.CHAL, i))
 
-    def const(self, v: int) -> torch.Tensor:
-        return FR.from_ints(v, self.dev)
+    def const(self, v: int):
+        return (kquotient.CONST,
+                self.consts.setdefault(v % PFR.p, len(self.consts)))
 
-    def get(self, name: str, rot: int) -> torch.Tensor:
-        key = (name, rot)
-        if key not in self._rolled:
-            ext = self.exts[name]
-            self._rolled[key] = (torch.roll(ext, -rot * EXT_FACTOR, dims=0)
-                                 if rot else ext)
-        return self._rolled[key]
+    def get(self, name: str, rot: int):
+        col = self.columns.setdefault(name, len(self.columns))
+        shift = rot * EXT_FACTOR % self.rows
+        return (kquotient.INPUT,
+                self.inputs.setdefault((col, shift), len(self.inputs)))
 
-    def identity(self, gi: int) -> torch.Tensor:
-        return FR.mul(self.const(pow(DELTA, gi, PFR.p)), self.xext)
+    def identity(self, gi: int):
+        return self.mul(self.const(pow(DELTA, gi, PFR.p)),
+                        self.get(SEL_X, 0))
+
+    def _step(self, op: int, a, b):
+        self.steps.append((op, a, b))
+        return (kquotient.SLOT, len(self.steps) - 1)
 
     def add(self, a, b):
-        return FR.add(a, b)
+        return self._step(kquotient.ADD, a, b)
 
     def sub(self, a, b):
-        return FR.sub(a, b)
+        return self._step(kquotient.SUB, a, b)
 
     def mul(self, a, b):
-        return FR.mul(a, b)
+        return self._step(kquotient.MUL, a, b)
 
 
-def quotient_eval(vk, exts, sels, chal, xext) -> torch.Tensor:
-    """h on the extended coset: the y-folded constraint numerator times
-    1/Z_H (``prover.py:509-518``)."""
-    ctx = _ExtCtx(exts, sels, chal, xext)
-    numer = constraints.fold_y(ctx, constraints.enumerate_constraints(vk,
-                                                                      ctx))
-    return FR.mul(numer, sels["zh_inv"])
+def compile_quotient(vk, n: int) -> kquotient.Tape:
+    """The quotient's program for kernel 15 (``kernels/quotient.py``):
+    the y-folded constraint numerator of :mod:`.constraints` times 1/Z_H
+    at one row of the extended coset of 4n rows, as a straight-line tape
+    (``prover.py:512-522``, the jitted evaluator, compiled once per key)."""
+    ctx = _TapeCtx(EXT_FACTOR * n)
+    terms = constraints.enumerate_constraints(vk, ctx)
+    fold = len(ctx.steps)
+    numer = constraints.fold_y(ctx, terms)
+    ctx.mul(numer, ctx.get(SEL_ZH_INV, 0))
+    return kquotient.assemble(ctx.steps, fold, ctx.rows, list(ctx.columns),
+                              list(ctx.inputs), list(ctx.consts))
+
+
+def quotient_eval(tape: kquotient.Tape, exts, sels, chal,
+                  xext) -> torch.Tensor:
+    """h on the extended coset: the tape at every row, one launch of
+    kernel 15 (its plain twin on the CPU)."""
+    by_name = {SEL_L0: sels["l0"], SEL_LLAST: sels["llast"],
+               SEL_LBLIND: sels["lblind"], SEL_ZH_INV: sels["zh_inv"],
+               SEL_X: xext}
+    cols = [by_name[nm] if nm in by_name else exts[nm]
+            for nm in tape.columns]
+    return kquotient.quotient(FR, tape, cols,
+                              [chal[k] for k in kquotient.CHALLENGES])
 
 
 # ---------------------------------------------------------------------------
@@ -678,20 +678,21 @@ class Prover:
         return out
 
     def _quotient_exts(self):
-        """The coset extensions the constraint system reads, and the
-        extended X; the key's share made once per key and mesh."""
+        """The coset extensions the constraint system reads, the extended
+        X and the key's tape (:func:`compile_quotient`, once per key); the
+        key's share of the extensions made once per key and mesh."""
         pk, dom, n = self.pk, self.dom, self.dom.n
         coeffs = self._all_coeffs()
         cache = pk.prover_cache
         if "quotient_names" not in cache:
-            rec = _RecCtx()
-            constraints.enumerate_constraints(pk.vk, rec)
-            names = sorted(rec.names)
+            tape = compile_quotient(pk.vk, n)
+            names = sorted(nm for nm in tape.columns if nm not in _SELS)
             e1 = torch.zeros((n, 8), dtype=torch.int32, device=self.dev)
             e1[1] = _one(self.dev)
             static = set(pk.fixed_coeffs) | {
                 f"perm.sigma{i}" for i in range(len(pk.sigma_coeffs))}
             cache["quotient_names"] = names
+            cache["quotient_tape"] = tape
             cache["static_names"] = [nm for nm in names if nm in static]
             cache["xext"] = dom.coeff_to_extended(e1)
             cache["static_exts"] = {}
@@ -705,7 +706,7 @@ class Prover:
         exts = dict(static_exts)
         exts.update(self._extend(
             coeffs, [nm for nm in names if nm not in static_exts]))
-        return exts, cache["xext"]
+        return exts, cache["xext"], cache["quotient_tape"]
 
     def quotient(self) -> None:
         """h = numerator / Z_H on the extended coset, its coefficients cut
@@ -719,12 +720,10 @@ class Prover:
         pk, dom, n = self.pk, self.dom, self.dom.n
         with _phase(self.metrics, "prove.quotient"):
             with span("extend"):
-                exts, xext = self._quotient_exts()
-            with span("constraints"):
-                chal = {k: self.challenges[k]
-                        for k in ("theta", "beta", "gamma", "y")}
-                h_ext = quotient_eval(pk.vk, exts, pk.ext_selectors, chal,
-                                      xext)
+                exts, xext, tape = self._quotient_exts()
+            with span("constraints", **tape.counts()):
+                h_ext = quotient_eval(tape, exts, pk.ext_selectors,
+                                      self.challenges, xext)
                 del exts                 # the extended columns: free them
                 self.lk_data = None
             with span("h"):
