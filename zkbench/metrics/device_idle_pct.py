@@ -1,8 +1,9 @@
 """device_idle_pct: 1 − (the union of the device's kernel, copy and fill
-intervals ÷ the traced window of steady proves), in %. None when the
-profiler's kernel records still differ from the program's launch counts
-after the retakes: a trace with holes is not read. Moves
-prove_throughput."""
+intervals ÷ the traced window of steady proves), in %; in a cell of
+several clients, the union of every client process's intervals in their
+common traced window (``trace.merge``). None when the profiler's kernel
+records still differ from the program's launch counts after the
+retakes: a trace with holes is not read. Moves prove_throughput."""
 
 
 def read(ctx):

@@ -1,6 +1,7 @@
 """keygen_s: the set-up's keygen phase (``setup.keygen``: the fixed and σ
 columns, their commitments, the quotient's selector tables), host clock
-with the program's synchronize at the phase's end. Moves setup_s."""
+with the program's synchronize at the phase's end. In a cell of several
+clients, the mean of the clients' (they set up at once). Moves setup_s."""
 
 
 def read(ctx):

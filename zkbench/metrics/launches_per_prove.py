@@ -1,6 +1,7 @@
 """launches_per_prove: the program's own launch counters (the twelve
 kernels' wrappers and the BLAKE2f kernels') over the traced proves,
-divided by their number. Moves prove_throughput."""
+divided by their number. In a cell of several clients, both summed over
+the clients' traced proves. Moves prove_throughput."""
 
 
 def read(ctx):

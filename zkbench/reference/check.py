@@ -15,7 +15,11 @@ compared, each with its limit (all exact, so every limit is 0):
 * ``key_check_failed`` (IPA): 1 when a random combination of the
   program's fixed and σ commitments is not the commitment to the same
   combination of the reference's columns;
-* ``prove_errors``: proves of the window that raised.
+* ``prove_errors``: proves of the window that raised;
+* ``clients_unjudged`` (a cell of several clients): clients none of whose
+  proofs the sample holds. There, ``key_points_differ`` also counts the
+  commitments in which another client's key differs from client 0's,
+  against which the sample is judged.
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ import numpy as np
 from . import circuit, verify
 
 LIMITS = {"proofs_rejected": 0, "pub_cells_differ": 0,
-          "key_points_differ": 0, "key_check_failed": 0, "prove_errors": 0}
+          "key_points_differ": 0, "key_check_failed": 0, "prove_errors": 0,
+          "clients_unjudged": 0}
 POOL = 8            # processes of the IPA reference's MSM and generators
 
 
@@ -105,6 +110,12 @@ def judge(config: Dict, n_inst: int, samples: List[Sample],
         pool.close()
         pool.join()
     return out
+
+
+def keys_differ(a: Dict, b: Dict, config: Dict) -> int:
+    """Commitments in which two of the program's keys differ."""
+    pa, pb = _key(a, config).points(), _key(b, config).points()
+    return sum(x != y for x, y in zip(pa, pb)) + abs(len(pa) - len(pb))
 
 
 def _key(program_key: Dict, config: Dict) -> verify.Key:

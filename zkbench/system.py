@@ -29,6 +29,13 @@ class Port:
                 raise ValueError(f"unknown control {control!r}")
             self.rounds = int(value)
 
+    @staticmethod
+    def prepare() -> None:
+        """Build the kernel libraries (nvcc, in a checkout's first run). The
+        clients of a cell call it in turn under one lock, so the first
+        builds and the others only load that build."""
+        build.build()
+
     def setup(self, cfg: Dict, n_inst: int, device: str):
         """The pipeline as the configuration states it (the control: with
         another number of rounds): the kernel libraries loaded (built by
@@ -60,6 +67,11 @@ class Port:
     def trace(self, prove, proves: int, log) -> Dict:
         return trace_mod.trace_proves(prove, proves, self.launches,
                                       kernels.reset_counts, log=log)
+
+    def trace_until(self, prove, arm) -> Dict:
+        """This process's share of a trace of several clients' proves."""
+        return trace_mod.trace_until(prove, arm, self.launches,
+                                     kernels.reset_counts)
 
     @staticmethod
     def msm_probe(prove, proves: int) -> Optional[Dict]:

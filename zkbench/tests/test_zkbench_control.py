@@ -41,7 +41,8 @@ def _run(workload, seed, control=None):
 
 @pytest.mark.parametrize("workload", ["kzg-k17.full-random",
                                       "ipa-k17.full-random",
-                                      "kzg-k17.single"])
+                                      "kzg-k17.single",
+                                      "kzg-k17.full-2clients"])
 def test_control_fails_and_the_program_passes(card, workload):
     bad = _run(workload, 2147483801, "rounds=11")
     assert bad["correct"] is False

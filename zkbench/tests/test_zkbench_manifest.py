@@ -163,3 +163,34 @@ def test_every_cell_resolves(manifest):
         assert {m["name"] for m in cell.end_to_end} >= {"setup_s"}
         for m in cell.per_layer:
             assert callable(harness.load_reader(BENCH, m["name"]))
+
+
+def test_every_traffic_file_loads():
+    names = sorted(f[:-5] for f in os.listdir(os.path.join(BENCH, "traffic"))
+                   if f.endswith(".json"))
+    assert "full-2clients" in names
+    for name in names:
+        spec = traffic.load(BENCH, name)
+        assert spec["loop"] == "closed" and spec["clients"] >= 1
+        b = traffic.batch(spec, (1 << 33) + 1, traffic.WINDOW, 0,
+                          spec["clients"] - 1)
+        assert b.h.shape == (spec["instances_per_proof"], 8)
+
+
+def test_a_cell_of_several_clients_reports_every_per_layer_metric(manifest):
+    """The clients hand their spans, counters and traces to the parent,
+    which pools them: a cell of several clients reports every per-layer
+    metric that a one-client cell of its configuration reports."""
+    cells = [harness.cell_of(manifest, w["name"], BENCH)
+             for w in manifest["workloads"]]
+    for cell in cells:
+        if cell.traffic["clients"] > 1:
+            wl = next(w for w in manifest["workloads"]
+                      if w["name"] == cell.name)
+            assert wl["chips"] == 1
+            alone = [c for c in cells if c.traffic["clients"] == 1
+                     and c.config == cell.config]
+            assert alone
+            for c in alone:
+                assert {m["name"] for m in c.per_layer} <= \
+                    {m["name"] for m in cell.per_layer}

@@ -5,7 +5,13 @@ that took most time, the longest idle gaps by what the host was doing,
 and the port's kernel records by wrapper, which are held against the
 program's own launch counts over the same proves: CUPTI on an H100
 sometimes drops a run of kernel records, and a trace with holes is
-taken again rather than read."""
+taken again rather than read.
+
+One process's profiler sees only its own kernels. Where several client
+processes share the card, each traces the same window
+(:func:`trace_until`) and the parent merges their intervals on the
+machine's monotonic clock (:func:`merge`), so one client's kernels are
+not counted as the card's idle time in another's trace."""
 
 from __future__ import annotations
 
@@ -14,8 +20,9 @@ import json
 import os
 import re
 import tempfile
+import time
 from collections import Counter, defaultdict
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 WINDOW_SPAN = "zkbench.traced_window"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -80,13 +87,7 @@ def reduce_events(events: List[Dict]) -> Dict:
             if w is not None:
                 records[w] += 1
     busy = _union(dev)
-    gaps, prev = [], w0
-    for s, t in busy:
-        if s > prev:
-            gaps.append((prev, s))
-        prev = t
-    if w1 > prev:
-        gaps.append((prev, w1))
+    gaps = _gaps(busy, w0, w1)
     spans = [e for e in xs if e.get("cat") == "user_annotation"
              and e.get("tid") == win.get("tid") and e is not win]
     ops = sorted((e for e in xs if e.get("cat") in HOST_OPS
@@ -103,6 +104,19 @@ def reduce_events(events: List[Dict]) -> Dict:
             "idle_gaps": [[n, v] for n, v in sorted(
                 idle.items(), key=lambda kv: -kv[1])[:TOP]],
             "kernel_records": dict(records)}
+
+
+def _gaps(busy, w0: float, w1: float) -> List:
+    """The idle [start, end) stretches of [w0, w1] between merged busy
+    intervals."""
+    gaps, prev = [], w0
+    for s, t in busy:
+        if s > prev:
+            gaps.append((prev, s))
+        prev = t
+    if w1 > prev:
+        gaps.append((prev, w1))
+    return gaps
 
 
 def _covers(e: Dict, at: float) -> bool:
@@ -143,22 +157,150 @@ def trace_proves(prove: Callable[[int], None], proves: int,
                     prove(attempt * proves + j)
                 torch.cuda.synchronize()
         counted = {k: v for k, v in launches().items() if v}
-        fd, path = tempfile.mkstemp(suffix=".json")
-        os.close(fd)
-        try:
-            prof.export_chrome_trace(path)
-            with open(path) as fh:
-                events = json.load(fh)["traceEvents"]
-        finally:
-            os.remove(path)
-        red = reduce_events(events)
-        rec = red["kernel_records"]
-        lost = {k: counted.get(k, 0) - rec.get(k, 0)
-                for k in set(counted) | set(rec)
-                if counted.get(k, 0) != rec.get(k, 0)}
+        red = reduce_events(_events(prof))
+        lost = _lost(counted, red["kernel_records"])
         red.update(lost=lost, retakes=attempt, counted=counted)
         if not lost:
             return red
         log(f"trace {attempt + 1}: the profiler's kernel records differ "
             f"from the launch counts by {lost}; taking it again")
     return red
+
+
+def _lost(counted: Dict[str, int], records: Dict[str, int]) -> Dict:
+    """The launches the trace's kernel records lack (or have beyond the
+    counts), by wrapper."""
+    return {k: counted.get(k, 0) - records.get(k, 0)
+            for k in set(counted) | set(records)
+            if counted.get(k, 0) != records.get(k, 0)}
+
+
+def _events(prof) -> List[Dict]:
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            return json.load(fh)["traceEvents"]
+    finally:
+        os.remove(path)
+
+
+def trace_until(prove: Callable[[int], None],
+                arm: Callable[[], Tuple[float, float]],
+                launches: Callable[[], Dict[str, int]],
+                reset: Callable[[], None]) -> Dict:
+    """One client's share of a trace of several prover processes on one card:
+    once the profiler has started, arm() gives the common window (start,
+    until) on ``time.perf_counter``, which is CLOCK_MONOTONIC and so one
+    clock for every process of the machine; prove(j) for j = 0, 1, …
+    from `start` until `until`. Returns, on that clock, the window's
+    open, this process's device intervals (start, end, name) and its
+    spans (name, start, end), with its launch counts (``counted``), its
+    kernel records held against them (``lost``) and the proves made. The
+    trace's own times are mapped onto the clock through the window
+    span's open."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    reset()
+    j = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start, until = arm()
+        while time.perf_counter() < start:
+            time.sleep(0.001)
+        t_open = time.perf_counter()
+        with record_function(WINDOW_SPAN):
+            while time.perf_counter() < until:
+                prove(j)
+                j += 1
+            torch.cuda.synchronize()
+    counted = {k: v for k, v in launches().items() if v}
+    xs = [e for e in _events(prof) if e.get("ph") == "X" and "dur" in e]
+    win = next(e for e in xs if e.get("name") == WINDOW_SPAN
+               and e.get("cat") == "user_annotation")
+    off = t_open - float(win["ts"]) / 1e6
+
+    def clock(e):
+        s = float(e["ts"]) / 1e6 + off
+        return s, s + float(e["dur"]) / 1e6
+
+    device, records = [], Counter()
+    for e in xs:
+        if e.get("cat") in DEVICE_CATS:
+            device.append((*clock(e), e["name"][:120]))
+            w = wrapper_of(e["name"]) if e.get("cat") == "kernel" else None
+            if w is not None:
+                records[w] += 1
+    spans = [(e["name"], *clock(e)) for e in xs
+             if e.get("cat") == "user_annotation"
+             and e.get("tid") == win.get("tid") and e is not win]
+    return {"open": t_open, "until": until, "device": device,
+            "spans": spans, "counted": counted,
+            "lost": _lost(counted, records), "proves": j}
+
+
+def _shares(intervals) -> Dict[str, float]:
+    """Each (start, end, name)'s share of the union of the intervals, by
+    name: every stretch of time split evenly among the intervals in
+    flight over it. Two contexts' kernels that a trace shows overlapping
+    ran in turns (time-slicing), so neither is credited with the whole
+    stretch, and the shares sum to the union's length."""
+    edges = sorted((t, k, i) for i, (s, e, _) in enumerate(intervals)
+                   for t, k in ((s, 1), (e, 0)))
+    out: Dict[str, float] = defaultdict(float)
+    live: set = set()
+    prev = None
+    for t, k, i in edges:
+        if live and t > prev:
+            each = (t - prev) / len(live)
+            for j in live:
+                out[intervals[j][2]] += each
+        prev = t
+        (live.add if k else live.discard)(i)
+    return out
+
+
+def merge(traces: List[Dict]) -> Dict:
+    """The clients' shares of one trace (:func:`trace_until`) as one
+    card's: busy seconds (the union of every client's device intervals)
+    in the window in which every client was tracing; the device
+    operations that took most of that busy time, each stretch of it split
+    evenly among the operations in flight (:func:`_shares`); the longest
+    idle gaps by what each client's host was doing (its innermost span);
+    and the launch counts and proves summed over the clients."""
+    w0 = max(t["open"] for t in traces)
+    w1 = min(t["until"] for t in traces)
+    lost = {f"client {c}: {k}": v for c, t in enumerate(traces)
+            for k, v in t["lost"].items()}
+    if w1 <= w0:            # a client's profiler opened after the window
+        lost["no common window"] = 1
+        w1 = w0
+    dev = []
+    for t in traces:
+        for s, e, name in t["device"]:
+            s, e = max(s, w0), min(e, w1)
+            if e > s:
+                dev.append((s, e, name))
+    busy = _union((s, e) for s, e, _ in dev)
+    idle = defaultdict(float)
+    for s, e in _gaps(busy, w0, w1):
+        at = (s + e) / 2
+        label = " | ".join(
+            f"client {c}: " + max(((sp[1], sp[0]) for sp in t["spans"]
+                                   if sp[1] <= at < sp[2]),
+                                  default=(0, "host (no span)"))[1]
+            for c, t in enumerate(traces))
+        idle[label] += e - s
+    counted = Counter()
+    for t in traces:
+        counted.update(t["counted"])
+    return {"busy_s": sum(e - s for s, e in busy), "window_s": w1 - w0,
+            "device_ops": [[n, v] for n, v in sorted(
+                _shares(dev).items(), key=lambda kv: -kv[1])[:TOP]],
+            "idle_gaps": [[n, v] for n, v in sorted(
+                idle.items(), key=lambda kv: -kv[1])[:TOP]],
+            "lost": lost, "counted": dict(counted),
+            "proves": sum(t["proves"] for t in traces)}

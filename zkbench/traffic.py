@@ -12,8 +12,11 @@ A mix file holds::
 
 ``uniform`` draws 64-bit words, ``const`` repeats ``value`` (an int, or a
 list with one int per word of the field), ``bernoulli`` draws the final
-flag. Batch i of a run depends on (seed, i) alone, so every seed gives
-the same sizes and the same number of words, in other values.
+flag. ``clients`` closed-loop clients send at once, each its own stream
+of proofs; ``warmup_proves`` is each client's. Batch i of a client of a
+run depends on (seed, stream, i, client) alone, so every seed gives the
+same sizes and the same number of words, in other values; client 0 draws
+what a one-client run draws.
 """
 
 from __future__ import annotations
@@ -51,9 +54,13 @@ class Batch:
 def load(root: str, name: str) -> Dict:
     with open(os.path.join(root, "traffic", f"{name}.json")) as fh:
         spec = json.load(fh)
-    if spec.get("loop") != "closed" or spec.get("clients") != 1:
-        raise ValueError(f"traffic {name}: only a closed loop with one "
-                         "client is generated")
+    if spec.get("loop") != "closed":
+        raise ValueError(f"traffic {name}: an open loop is not generated "
+                         "yet; only a closed loop")
+    clients = spec.get("clients")
+    if not isinstance(clients, int) or clients < 1:
+        raise ValueError(f"traffic {name}: clients must be a whole number "
+                         f"of at least 1, not {clients!r}")
     unknown = set(spec["words"]) ^ set(WORDS)
     if unknown:
         raise ValueError(f"traffic {name}: words {sorted(unknown)}")
@@ -70,9 +77,12 @@ def _draw(rng, rule: Dict, shape):
     raise ValueError(f"unknown distribution {dist!r}")
 
 
-def batch(spec: Dict, seed: int, stream: int, i: int) -> Batch:
-    """Batch i of a stream (WARMUP or WINDOW) of the run of `seed`."""
-    rng = np.random.default_rng([seed % (1 << 64), stream, i])
+def batch(spec: Dict, seed: int, stream: int, i: int,
+          client: int = 0) -> Batch:
+    """Batch i of a stream (WARMUP or WINDOW) of `client` in the run of
+    `seed`."""
+    key = [seed % (1 << 64), stream, i] + ([client] if client else [])
+    rng = np.random.default_rng(key)
     b = spec["instances_per_proof"]
     w = spec["words"]
     h = _draw(rng, w["h"], (b, 8))
